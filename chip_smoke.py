@@ -5,8 +5,16 @@ Run from the repo root, with no arguments:
 
     python3 chip_smoke.py
 
+or, to also time an older one-block masked_gru.cu (the PR-4 source, e.g.
+`git show 5a338a1:rvo3d_tpu_torch/csrc/masked_gru.cu > OLD.cu`) in turns
+with this kernel at the timed batches:
+
+    python3 chip_smoke.py --old-kernel OLD.cu
+
 It builds the hand-written CUDA kernel from csrc/ with nvcc, holds it
-against its plain torch version at the serving path's shapes, runs the
+against its plain torch version at the serving path's shapes (one
+direction each way, and both biGRU directions fused in one launch), times
+it at B = 2048, 4096 and 65536 beside the plain scan and cuDNN, runs the
 serving path closed-loop (evaluate of a biGRU-256 policy with random
 weights from a fixed seed on worlds_data/world16_dense, 256 lanes x 16
 drones), serves PolicyServer.act / act_flat batches, and checks that the
@@ -18,6 +26,8 @@ before printing any result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -28,8 +38,13 @@ SEED = 0
 LANES = 256            # env lanes; x 16 drones = B 4096 policy rows
 WORLD = "world16_dense"
 F32_PEAK = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
+# the card's fastest route for work held to f32 accuracy: 3xTF32 on the
+# tensor cores, a third of the 495 TFLOP/s dense TF32 peak
+TF32X3_PEAK = 495e12 / 3
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
-ATOL = 1e-4            # f32, TF32 off: summation order over 265 terms, 10 steps
+ATOL = 1e-4            # f32 accuracy (3xTF32 in the kernel, TF32 off in the
+                       # plain scan): summation order over 265 terms, 10 steps
+TIMED_B = (2048, 4096, 65536)  # w16_r4's rollout (128 x 16), serving, a PPO batch
 
 
 def emit(obj) -> None:
@@ -79,7 +94,11 @@ def p50_ms(fn, iters=30, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-kernel", help="an older one-block masked_gru.cu "
+                    "(PR-4 interface) to time in turns with this kernel")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -111,7 +130,7 @@ def main() -> int:
                                  "cuda": torch.version.cuda})
 
     def build():
-        _build.load("masked_gru")
+        mg.library()
         info = _build.BUILD_INFO["masked_gru"]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -125,57 +144,131 @@ def main() -> int:
     b_main = LANES * 16
     gen = torch.Generator().manual_seed(SEED)
 
-    def gru_case(b, empty=False):
+    def gru_case(b, mask_kind="random"):
         nbr = torch.randn(b, s_len, in_dim, generator=gen)
         mask = (torch.rand(b, s_len, generator=gen) > 0.4).float()
-        if empty:
+        if mask_kind == "empty":
             mask.zero_()
+        elif mask_kind == "last":     # a drone with no neighbour (the encoder's row)
+            mask.zero_()
+            mask[:, -1] = 1.0
+        elif mask_kind == "suffix":   # the env's layout: valid slots at the end
+            k = torch.randint(0, s_len + 1, (b, 1), generator=gen)
+            mask = (torch.arange(s_len)[None, :] >= s_len - k).float()
         bound = hidden ** -0.5
-        w = [torch.empty(shape).uniform_(-bound, bound, generator=gen)
-             for shape in ((in_dim, 3 * hidden), (hidden, 3 * hidden),
-                           (3 * hidden,), (3 * hidden,))]
-        nbr, mask, *w = (t.to(dev) for t in (nbr, mask, *w))
-        return nbr.transpose(0, 1), mask.t(), w   # the encoder's strided views
+        fwd, bwd = ([torch.empty(shape).uniform_(-bound, bound, generator=gen).to(dev)
+                     for shape in ((in_dim, 3 * hidden), (hidden, 3 * hidden),
+                                   (3 * hidden,), (3 * hidden,))] for _ in range(2))
+        nbr, mask = nbr.to(dev), mask.to(dev)
+        return nbr.transpose(0, 1), mask.t(), fwd, bwd   # the encoder's strided views
 
     kstats = {}
 
     def kernel_checks():
         errs = {}
-        for label, b, empty, reverse in (("fwd", b_main, False, False),
-                                         ("bwd", b_main, False, True),
-                                         ("ragged_bwd", b_main - 7, False, True),
-                                         ("empty_mask", b_main, True, False)):
-            xs, ms, w = gru_case(b, empty)
-            got = mg.masked_gru_scan_cuda(xs, ms, *w, reverse=reverse)
-            torch.cuda.synchronize()
-            ref = mg.masked_gru_scan_plain(xs, ms, *w, reverse=reverse)
+        for label, b, kind, reverse in (("fwd", b_main, "random", False),
+                                        ("bwd", b_main, "random", True),
+                                        ("ragged_bwd", b_main - 7, "random", True),
+                                        ("empty_mask", b_main, "empty", False),
+                                        ("bigru", b_main, "random", None),
+                                        ("bigru_suffix_ragged", b_main - 7, "suffix", None),
+                                        ("bigru_b1", 1, "random", None)):
+            xs, ms, fwd, bwd = gru_case(b, kind)
+            if reverse is None:
+                got = mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd)
+                torch.cuda.synchronize()
+                ref = mg.masked_bigru_scan_plain(xs, ms, fwd, bwd)
+            else:
+                got = mg.masked_gru_scan_cuda(xs, ms, *fwd, reverse=reverse)
+                torch.cuda.synchronize()
+                ref = mg.masked_gru_scan_plain(xs, ms, *fwd, reverse=reverse)
             err = (got - ref).abs().max().item()
             if not err <= ATOL:
                 raise AssertionError(f"{label}: max |kernel - plain| = {err} > {ATOL}")
             errs[label] = err
         kstats["max_abs_err"] = max(errs.values())
 
-        xs, ms, w = gru_case(b_main)
-        kstats["ms"] = cuda_ms(lambda: mg.masked_gru_scan_cuda(xs, ms, *w), 50)
-        kstats["plain_ms"] = cuda_ms(lambda: mg.masked_gru_scan_plain(xs, ms, *w), 20)
-        gru = torch.nn.GRU(in_dim, hidden).to(dev)
-        x_dense = xs.contiguous()
-        with torch.no_grad():
-            kstats["library_ms"] = cuda_ms(lambda: gru(x_dense), 50)
-        active = float(ms.sum().item())
-        flops = 2.0 * active * (in_dim + hidden) * 3 * hidden
-        nbytes = 4.0 * (xs.numel() + ms.numel() + sum(t.numel() for t in w)
-                        + b_main * hidden)
-        t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BYTES_S
-        kstats["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        kstats["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        # the main path's launch: both directions of the biGRU, summed
+        timed = {}
+        for b in TIMED_B:
+            xs, ms, fwd, bwd = gru_case(b)
+            iters = 30 if b <= 4096 else 5
+            row = {"kernel_bigru_ms": cuda_ms(
+                       lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd), iters),
+                   "kernel_one_direction_ms": cuda_ms(
+                       lambda: mg.masked_gru_scan_cuda(xs, ms, *fwd), iters),
+                   "plain_bigru_ms": cuda_ms(
+                       lambda: mg.masked_bigru_scan_plain(xs, ms, fwd, bwd),
+                       max(3, iters // 3))}
+            gru = torch.nn.GRU(in_dim, hidden, bidirectional=True).to(dev)
+            x_dense = xs.contiguous()
+            with torch.no_grad():
+                row["cudnn_bigru_unmasked_ms"] = cuda_ms(lambda: gru(x_dense), iters)
+            active = float(ms.sum().item())
+            flops = 2 * 2.0 * active * (in_dim + hidden) * 3 * hidden  # two directions
+            nbytes = 4.0 * (xs.numel() + ms.numel() + 2 * sum(t.numel() for t in fwd)
+                            + b * hidden)
+            t_ops, t_bytes = flops / TF32X3_PEAK, nbytes / HBM_BYTES_S
+            row.update(flops=flops, bytes=nbytes,
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       bound_ms_f32_simt=max(flops / F32_PEAK, t_bytes) * 1e3)
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_bigru_ms"]
+            geo = mg.card_geometry(b, hidden, in_dim, 2)
+            row["geometry"] = {"rows": geo.rows, "tiles": geo.tiles,
+                               "clusters": geo.clusters, "cluster_ctas": mg.CLUSTER,
+                               "smem_bytes": geo.smem_bytes}
+            row["max_active_clusters"] = mg.max_active_clusters(geo.rows, geo.smem_bytes)
+            timed[str(b)] = row
+        main = timed[str(b_main)]
+        kstats.update(ms=main["kernel_bigru_ms"], plain_ms=main["plain_bigru_ms"],
+                      library_ms=main["cudnn_bigru_unmasked_ms"],
+                      bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                      bound_ms_f32_simt=main["bound_ms_f32_simt"])
         return {"max_abs_err": errs, "atol": ATOL, "B": b_main, "H": hidden,
-                "S": s_len, "kernel_ms": kstats["ms"],
-                "plain_ms": kstats["plain_ms"],
-                "cudnn_gru_unmasked_ms": kstats["library_ms"],
-                "bound_ms": kstats["bound_ms"], "bound_by": kstats["bound_by"],
-                "flops": flops, "bytes": nbytes}
+                "S": s_len, "bound_peak": "3xTF32 = 495/3 TFLOP/s", "timed": timed}
     run_phase("kernel_vs_plain", kernel_checks)
+
+    def old_kernel_in_turns():
+        so = os.path.join(_build.BUILD_DIR, "masked_gru_old.so")
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
+                        args.old_kernel], check=True, capture_output=True)
+        fn = ctypes.CDLL(so).masked_gru_forward
+        c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn.argtypes = [c, i64, i64, i64, c, i64, i64, c, c, c, c, c,
+                       i32, i32, i32, i32, i32, c]
+        fn.restype = ctypes.c_int
+
+        def one(xs, ms, w, reverse):   # one direction per launch
+            out = torch.empty(xs.shape[1], hidden, device=dev)
+            err = fn(xs.data_ptr(), *xs.stride(), ms.data_ptr(), *ms.stride(),
+                     *(t.data_ptr() for t in w), out.data_ptr(), s_len,
+                     xs.shape[1], in_dim, hidden, reverse,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"old kernel: cudaError {err}")
+            return out
+
+        timed = {}
+        for label, b, kind in [(str(b), b, "random") for b in TIMED_B] + [
+                (f"{b_main}_last_slot", b_main, "last")]:
+            xs, ms, fwd, bwd = gru_case(b, kind)
+            runs = {"new": lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd),
+                    "old": lambda: one(xs, ms, fwd, 0) + one(xs, ms, bwd, 1)}
+            ref = mg.masked_bigru_scan_plain(xs, ms, fwd, bwd)
+            errs = {k: (f() - ref).abs().max().item() for k, f in runs.items()}
+            if not max(errs.values()) <= ATOL:
+                raise AssertionError(f"B={label}: max |kernel - plain| {errs} > {ATOL}")
+            iters = 30 if b <= 4096 else 5
+            times = {"new": [], "old": []}
+            for k in ("new", "old", "old", "new"):
+                times[k].append(cuda_ms(runs[k], iters))
+            timed[label] = {"new_bigru_ms": times["new"], "old_bigru_ms": times["old"],
+                            "max_abs_err": errs}
+        return {"old_source": args.old_kernel, "timed": timed}
+    if args.old_kernel:
+        run_phase("old_kernel_in_turns", old_kernel_in_turns)
 
     # ---- the env on the card against the env on the CPU (which the tests
     # hold to the NumPy oracle), float64, same actions ----
@@ -320,7 +413,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"], "plain_ms": kstats["plain_ms"],
         "bound_ms": kstats["bound_ms"], "bound_by": kstats["bound_by"],
-        "library_ms": kstats["library_ms"]}]})
+        "library_ms": kstats["library_ms"],
+        "bound_ms_f32_simt": kstats["bound_ms_f32_simt"]}]})
     if launches == 0:
         print("chip_smoke: the main path launched no masked GRU kernel", file=sys.stderr)
         return 1

@@ -16,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from rvo3d_tpu_torch.ops.masked_gru import masked_gru_scan
+from rvo3d_tpu_torch.ops.masked_gru import masked_bigru_scan, masked_gru_scan
 
 
 class GRUCore(nn.Module):
@@ -38,10 +38,12 @@ class GRUCore(nn.Module):
             for p in self.parameters():
                 p.uniform_(-bound, bound, generator=generator)
 
+    def weights(self):
+        return self.w_ih, self.w_hh, self.b_ih, self.b_hh
+
     def forward(self, xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """xs [S, B, IN] (any strides), mask [S, B] float -> [B, H]."""
-        return masked_gru_scan(xs, mask, self.w_ih, self.w_hh, self.b_ih,
-                               self.b_hh, self.reverse)
+        return masked_gru_scan(xs, mask, *self.weights(), self.reverse)
 
 
 class NeighborEncoder(nn.Module):
@@ -75,8 +77,9 @@ class NeighborEncoder(nn.Module):
         x = neighbors.reshape(-1, nm, neighbors.shape[-1])     # [B, nm, IN]
         xs = x.transpose(0, 1)                                  # [nm, B, IN] view
         ms = mask.reshape(-1, nm).to(x.dtype).transpose(0, 1)   # [nm, B] view
-        hn = self.fwd(xs, ms)
-        if self.mode == "biGRU":
-            hn = hn + self.bwd(xs, ms)
+        if self.mode == "biGRU":   # both directions in one kernel launch
+            hn = masked_bigru_scan(xs, ms, self.fwd.weights(), self.bwd.weights())
+        else:
+            hn = self.fwd(xs, ms)
         hn = hn.reshape(lead + (self.hidden_dim,))
         return self.ln(torch.cat([self_state.to(hn.dtype), hn], dim=-1))

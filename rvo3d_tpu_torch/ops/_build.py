@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -76,11 +76,15 @@ def build(name: str) -> str:
     return so
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+def load(name: str,
+         on_load: Optional[Callable[[ctypes.CDLL], ctypes.CDLL]] = None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use; `on_load`
+    runs once on a newly loaded library (to set its ctypes signatures)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
+            if on_load is not None:
+                lib = on_load(lib)
             _LIBS[name] = lib
         return lib

@@ -94,6 +94,50 @@ def test_function_grads_match_autograd(reverse):
         torch.testing.assert_close(g1, g2, rtol=0, atol=ATOL)
 
 
+def bigru_data(b=B, seed=6):
+    xs, mask, *fwd = make_data(b, seed=seed)
+    bwd = make_data(b, seed=seed + 100)[2:]
+    return xs, mask, fwd, bwd
+
+
+@pytest.mark.parametrize("b", [B, 61])
+def test_bigru_plain_matches_jax_reference(b):
+    xs, mask, fwd, bwd = bigru_data(b)
+    j = lambda a: jnp.asarray(np.ascontiguousarray(a))
+    ref = (np.asarray(pg.gru_scan_reference(j(xs), j(mask), *map(j, fwd)))
+           + np.asarray(pg.gru_scan_reference(j(xs[::-1]), j(mask[::-1]), *map(j, bwd))))
+    t = lambda a: [torch.tensor(x) for x in a]
+    out = mg.masked_bigru_scan_plain(torch.tensor(xs), torch.tensor(mask), t(fwd), t(bwd))
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+    got = mg.masked_bigru_scan(torch.tensor(xs), torch.tensor(mask), t(fwd), t(bwd))
+    torch.testing.assert_close(got, out, rtol=0, atol=0)
+
+
+def test_bigru_plain_matches_pallas_interpret(monkeypatch):
+    xs, mask, fwd, bwd = bigru_data(61, seed=7)
+    monkeypatch.setattr(pg, "_INTERPRET", True)
+    monkeypatch.setattr(pg, "TILE_B", 48)
+    j = lambda a: jnp.asarray(np.ascontiguousarray(a))
+    ref = (np.asarray(pg._pallas_forward(j(xs), j(mask), *map(j, fwd)))
+           + np.asarray(pg._pallas_forward(j(xs[::-1]), j(mask[::-1]), *map(j, bwd))))
+    t = lambda a: [torch.tensor(x) for x in a]
+    out = mg.masked_bigru_scan_plain(torch.tensor(xs), torch.tensor(mask), t(fwd), t(bwd))
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+
+
+def test_bigru_function_grads_match_autograd():
+    xs, mask, fwd, bwd = bigru_data(seed=8)
+    base = [torch.tensor(a) for a in (xs, *fwd, *bwd)]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        out = fn(leaves[0], torch.tensor(mask), leaves[1:5], leaves[5:])
+        return torch.autograd.grad((out ** 2).sum(), leaves)
+
+    for g1, g2 in zip(grads(mg.masked_bigru_scan), grads(mg.masked_bigru_scan_plain)):
+        torch.testing.assert_close(g1, g2, rtol=0, atol=ATOL)
+
+
 def test_function_grads_match_jax_custom_vjp():
     import jax
 
@@ -119,6 +163,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     data = to_torch(make_data())
     with pytest.raises(ValueError, match="CUDA tensors"):
         mg.masked_gru_scan_cuda(*data)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mg.masked_bigru_scan_cuda(data[0], data[1], data[2:], data[2:])
     xs, mask, w_ih, w_hh, b_ih, b_hh = data
     with pytest.raises(TypeError, match="float32"):
         mg._check_cuda_args(xs.double(), mask, w_ih, w_hh, b_ih, b_hh)
