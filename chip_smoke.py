@@ -18,16 +18,26 @@ it at B = 2048, 4096 and 65536 beside the plain scan and cuDNN, runs the
 serving path closed-loop (evaluate of a biGRU-256 policy with random
 weights from a fixed seed on worlds_data/world16_dense, 256 lanes x 16
 drones), serves PolicyServer.act / act_flat batches, and checks that the
-path went through the kernel. Each phase prints one JSON line with its
-wall-clock seconds; a failed phase exits non-zero. The last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
-before printing any result.
+path went through the kernel. It then scores the committed product policy
+(rvo3d_tpu_torch/assets/w16_r4_e30.pt, the w16_r4 run's epoch 30) on
+world16_dense (`product_eval`: success >= 0.85 and mean EpLen within 0.3
+of 30.91 over >= 256 episodes at the evaluator's 1e-3 std factor),
+fine-tunes it for 2 epochs of Trainer.run_epoch at the run's full width
+(`train`: 128 lanes x 16 drones, T = 300, biGRU-256, batched update,
+minibatch 16384, 20 pi / 50 v iterations; one line per epoch), and holds
+the pi- and v-loss gradients of 16384 of its rows, as they are and with
+random neighbour masks, kernel forward on the card against the plain path
+on the CPU (`train_grad_kernel_vs_plain`).
+Each phase prints one JSON line with its wall-clock seconds; a failed
+phase exits non-zero. The last line is {"ok": true, "device": {...}}.
+Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,7 +54,30 @@ TF32X3_PEAK = 495e12 / 3
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 ATOL = 1e-4            # f32 accuracy (3xTF32 in the kernel, TF32 off in the
                        # plain scan): summation order over 265 terms, 10 steps
-TIMED_B = (2048, 4096, 65536)  # w16_r4's rollout (128 x 16), serving, a PPO batch
+TIMED_B = (2048, 4096, 16384, 65536)  # w16_r4's rollout (128 x 16), serving,
+                                      # w16_r4's PPO minibatch, a large batch
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rvo3d_tpu_torch",
+                      "assets")
+PRODUCT_PARAMS = os.path.join(ASSETS, "w16_r4_e30.pt")   # PolicyServer.save format
+PRODUCT_CONFIG = os.path.join(ASSETS, "w16_r4_config.json")
+TRAIN_EPOCHS = 2
+TRAIN_T = 300          # the run's steps_per_epoch; a cut would be printed
+GRAD_ROWS = 16384      # the run's minibatch
+GRAD_RTOL = 1e-3       # per parameter group: max |card - CPU| <= 1e-3 max |CPU|
+                       # (f32 with TF32 off, the GRU forward at 3xTF32, ~3e-7),
+                       # or no more than twice the card's plain path's distance:
+                       # at B = 16384 the card's f32 pi-loss gradients alone can
+                       # differ from the CPU's by more than that, with or without
+                       # the kernel (tests/torch_grad_precision.py)
+# The product policy under the evaluator's 1e-3 std factor: the JAX package
+# reported success 100 % and EpLen 30.91 +- 0.29 over 100 episodes on the
+# TPU (w16_r4's results.txt); the same evaluation of the JAX package on a
+# CPU scores success 0.91-0.95 and EpLen 30.83-30.98 over 100 episodes
+# (seeds 0-3). So the gate is success >= 0.85 over >= 256 episodes, and a
+# mean EpLen within 0.3 of 30.91.
+PRODUCT_EPISODES = 256
+PRODUCT_MIN_SUCCESS = 0.85
+PRODUCT_EPLEN, PRODUCT_EPLEN_TOL = 30.91, 0.3
 
 
 def emit(obj) -> None:
@@ -94,6 +127,21 @@ def p50_ms(fn, iters=30, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
+def bigru_bound(xs, ms, fwd):
+    """The least time of one biGRU launch on these inputs: the products of
+    the active steps (both directions) at the 3xTF32 peak, or the bytes
+    read once (xs, mask, both directions' weights) and written once."""
+    in_dim, hidden = xs.shape[-1], fwd[1].shape[0]
+    active = float(ms.sum().item())
+    flops = 2 * 2.0 * active * (in_dim + hidden) * 3 * hidden
+    nbytes = 4.0 * (xs.numel() + ms.numel() + 2 * sum(t.numel() for t in fwd)
+                    + xs.shape[1] * hidden)
+    t_ops, t_bytes = flops / TF32X3_PEAK, nbytes / HBM_BYTES_S
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_f32_simt": max(flops / F32_PEAK, t_bytes) * 1e3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-kernel", help="an older one-block masked_gru.cu "
@@ -108,10 +156,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from rvo3d_tpu_torch.algo import ppo
     from rvo3d_tpu_torch.algo.evaluator import evaluate
-    from rvo3d_tpu_torch.config import EnvParams, ModelConfig
+    from rvo3d_tpu_torch.algo.trainer import Trainer, metrics_finite
+    from rvo3d_tpu_torch.config import EnvParams, ModelConfig, from_dict
     from rvo3d_tpu_torch.env import DroneEnv, geometry as geo
     from rvo3d_tpu_torch.models import ActorCritic
+    from rvo3d_tpu_torch.models import encoder as encoder_mod
     from rvo3d_tpu_torch.ops import _build
     from rvo3d_tpu_torch.ops import masked_gru as mg
     from rvo3d_tpu_torch.serving import PolicyServer
@@ -192,7 +243,7 @@ def main(argv=None) -> int:
         timed = {}
         for b in TIMED_B:
             xs, ms, fwd, bwd = gru_case(b)
-            iters = 30 if b <= 4096 else 5
+            iters = 30 if b <= 4096 else 10 if b <= 16384 else 5
             row = {"kernel_bigru_ms": cuda_ms(
                        lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd), iters),
                    "kernel_one_direction_ms": cuda_ms(
@@ -204,15 +255,7 @@ def main(argv=None) -> int:
             x_dense = xs.contiguous()
             with torch.no_grad():
                 row["cudnn_bigru_unmasked_ms"] = cuda_ms(lambda: gru(x_dense), iters)
-            active = float(ms.sum().item())
-            flops = 2 * 2.0 * active * (in_dim + hidden) * 3 * hidden  # two directions
-            nbytes = 4.0 * (xs.numel() + ms.numel() + 2 * sum(t.numel() for t in fwd)
-                            + b * hidden)
-            t_ops, t_bytes = flops / TF32X3_PEAK, nbytes / HBM_BYTES_S
-            row.update(flops=flops, bytes=nbytes,
-                       bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       bound_ms_f32_simt=max(flops / F32_PEAK, t_bytes) * 1e3)
+            row.update(bigru_bound(xs, ms, fwd))
             row["share_of_bound"] = row["bound_ms"] / row["kernel_bigru_ms"]
             geo = mg.card_geometry(b, hidden, in_dim, 2)
             row["geometry"] = {"rows": geo.rows, "tiles": geo.tiles,
@@ -406,6 +449,236 @@ def main(argv=None) -> int:
                 "env_observe_ms": observe_ms}
     run_phase("step_breakdown", breakdown)
 
+    # ---- the training path, from the committed product policy (the w16_r4
+    # run's epoch 30, with its config) ----
+    with open(PRODUCT_CONFIG) as f:
+        run_cfg = from_dict(json.load(f))
+    product = torch.load(PRODUCT_PARAMS, map_location="cpu", weights_only=True)
+    run_world = load_world(run_cfg.world).spec(device=dev)
+    launches_by_phase = {"evaluate_and_serve": launches}
+
+    def product_eval():
+        server = PolicyServer.from_checkpoint(PRODUCT_PARAMS, device=dev)
+        mg.launches = 0
+        m = evaluate(server.ac, run_world, run_cfg.env,
+                     generator=torch.Generator(device=dev).manual_seed(SEED),
+                     num_episodes=PRODUCT_EPISODES, num_lanes=128, chunk_len=40,
+                     max_chunks=8, std_factor=run_cfg.train.std_factor_eval,
+                     action_mode=run_cfg.train.action_mode)
+        torch.cuda.synchronize()
+        n = mg.launches
+        if (m.get("truncated") or m["episodes"] < PRODUCT_EPISODES
+                or m["success_rate"] < PRODUCT_MIN_SUCCESS
+                or abs(m["mean_ep_len"] - PRODUCT_EPLEN) > PRODUCT_EPLEN_TOL):
+            raise AssertionError(f"the product policy scores {m}; the gate is success "
+                                 f">= {PRODUCT_MIN_SUCCESS} over {PRODUCT_EPISODES} "
+                                 f"episodes, EpLen {PRODUCT_EPLEN} +- {PRODUCT_EPLEN_TOL}")
+        if n == 0:
+            raise AssertionError("product_eval never launched the masked GRU kernel")
+        launches_by_phase["product_eval"] = n
+        return {"world": run_cfg.world, "lanes": 128, "drones": run_cfg.env.num_drones,
+                "gru_launches": n, "min_success": PRODUCT_MIN_SUCCESS,
+                "ep_len_gate": [PRODUCT_EPLEN, PRODUCT_EPLEN_TOL], **m}
+    run_phase("product_eval", product_eval)
+
+    trained = {}
+
+    def train():
+        cfg = dataclasses.replace(run_cfg, train=dataclasses.replace(
+            run_cfg.train, steps_per_epoch=TRAIN_T))
+        tr = cfg.train
+        trainer = Trainer(cfg, run_world, device=dev)
+        trainer.ac.load_state_dict(product["state_dict"])   # fresh optimizers
+        marks, keep = [], {}
+
+        def hook(name, data):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((ev, mg.launches))
+            if name == "gae":
+                active = data.obs_mask.sum(-1)
+                keep["rows"], keep["multi"] = active.numel(), (active > 1).sum()
+                keep["any"] = (active > 0).sum()
+            elif name == "update":
+                flat = ppo.AgentData(*[x.flatten(0, 2) for x in data])
+                start = (flat.act.shape[0] - GRAD_ROWS) // 2
+                keep["window"] = ppo.AgentData(
+                    *[x[start:start + GRAD_ROWS].clone() for x in flat])
+        trainer.phase_hook = hook
+        lines = []
+        mg.launches = 0
+        for epoch in range(TRAIN_EPOCHS):
+            marks.clear()
+            torch.cuda.reset_peak_memory_stats()
+            m = trainer.run_epoch()
+            torch.cuda.synchronize()
+            (e0, l0), (e1, l1), (e2, l2), (e3, l3) = marks
+            line = {"phase": "train_epoch", "epoch": epoch,
+                    "epoch_time_s": m["epoch_time_s"], "steps_per_sec": m["steps_per_sec"],
+                    "rollout_ms": e0.elapsed_time(e1), "gae_ms": e1.elapsed_time(e2),
+                    "update_ms": e2.elapsed_time(e3),
+                    "gru_launches_rollout": l1 - l0, "gru_launches_update": l3 - l2,
+                    "pi_iters": m["pi_iters"], "kl": m["kl"], "pi_loss": m["pi_loss"],
+                    "v_loss": m["v_loss"], "mean_step_reward": m["mean_step_reward"],
+                    "episodes": sum(m["episodes"]),
+                    "success_episodes": sum(m["success_episodes"]),
+                    "collision_episodes": sum(m["collision_episodes"]),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "rollout_rows": keep["rows"],
+                    "rollout_rows_with_neighbour": int(keep["any"]),
+                    "rollout_rows_multi_slot": int(keep["multi"])}
+            emit(line)
+            lines.append(line)
+            if not metrics_finite(m):
+                raise AssertionError(f"epoch {epoch}: non-finite metrics")
+            if line["gru_launches_rollout"] == 0 or line["gru_launches_update"] == 0:
+                raise AssertionError(f"epoch {epoch}: the kernel was not launched "
+                                     "in the rollout and in the update")
+        launches_by_phase["train"] = mg.launches
+        trained.update(trainer=trainer, window=keep["window"])
+        # where a rollout step's time goes, at the trainer's carry
+        env = DroneEnv(run_world, cfg.env, num_envs=tr.num_envs)
+        state, obs = trainer.carry.env_state, trainer.carry.obs
+        act = torch.zeros_like(state.vel)
+        none = torch.zeros(state.yaw.shape, dtype=torch.bool, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        with torch.no_grad():
+            step_ms = {"policy_step_ms": cuda_ms(lambda: trainer.ac.step(*obs, 1.0, gen), 20),
+                       "env_step_ms": cuda_ms(lambda: env.step(state, act), 20),
+                       "env_observe_ms": cuda_ms(lambda: env.observe(state), 20),
+                       "reset_where_ms": cuda_ms(lambda: env.reset_where(state, none), 20)}
+        return {"epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_T,
+                "steps_per_epoch_cut": TRAIN_T != run_cfg.train.steps_per_epoch,
+                "lanes": tr.num_envs, "drones": cfg.env.num_drones,
+                "world": cfg.world, "hidden": cfg.model.rnn_hidden_dim,
+                "minibatch": tr.minibatch, "batched_update": tr.batched_update,
+                "train_pi_iters": tr.train_pi_iters, "train_v_iters": tr.train_v_iters,
+                "gru_launches": launches_by_phase["train"],
+                "epoch_time_s": [x["epoch_time_s"] for x in lines],
+                "rollout_step_breakdown": step_ms}
+    run_phase("train", train)
+
+    # ---- the training path's gradients: kernel forward (plain backward) on
+    # the card against the plain path on the CPU, on 16384 rollout rows ----
+    def train_grad_check():
+        """The 16384 rollout rows as they are, and the same rows with random
+        neighbour features and masks (the product policy keeps VO
+        neighbours out of its cone, so its rows hold almost none)."""
+        trainer, rows = trained["trainer"], trained["window"]
+        tr = trainer.cfg.train
+        ac_card = trainer.ac
+        ac_cpu = ActorCritic(trainer.cfg.model, device="cpu")
+        ac_cpu.load_state_dict(ac_card.state_dict())
+        g = torch.Generator().manual_seed(SEED)
+        nm = rows.obs_mask.shape[-1]
+        k = torch.randint(0, nm + 1, (GRAD_ROWS, 1), generator=g)
+        rand_mask = torch.arange(nm)[None, :] >= nm - k          # the env's suffix layout
+        rand_nbr = torch.randn(rows.obs_nbr.shape, generator=g) * rand_mask[..., None]
+        cases = {"rollout_rows": rows,
+                 "random_neighbours": rows._replace(obs_nbr=rand_nbr.to(dev),
+                                                    obs_mask=rand_mask.to(dev))}
+
+        def grads(model, batch):
+            out = {}
+            losses = {"pi": lambda: ppo.pi_loss_fn(model, batch, tr.clip_ratio,
+                                                   tr.adv_norm, tr.ent_coef)[0],
+                      "v": lambda: ppo.v_loss_fn(model, batch, tr.value_clip)}
+            for name, loss in losses.items():
+                model.zero_grad(set_to_none=True)
+                loss().backward()
+                out[name] = {n: q.grad.detach().cpu().clone()
+                             for n, q in model.named_parameters() if q.grad is not None}
+            model.zero_grad(set_to_none=True)
+            return out
+        def plain_on_card(batch):
+            """The same gradients with the encoder's biGRU through the plain
+            scans on the card: the yardstick of what the card's float32
+            arithmetic alone moves."""
+            real = encoder_mod.masked_bigru_scan
+            encoder_mod.masked_bigru_scan = mg.masked_bigru_scan_plain
+            try:
+                return grads(ac_card, batch)
+            finally:
+                encoder_mod.masked_bigru_scan = real
+
+        groups = ("encoder.fwd", "encoder.bwd", "encoder.ln", "actor", "critic", "log_std")
+        report, failed = {}, []
+        for case, batch in cases.items():
+            before = mg.launches
+            g_card = grads(ac_card, batch)
+            torch.cuda.synchronize()
+            if mg.launches - before != 2:
+                raise AssertionError(f"{case}: {mg.launches - before} kernel launches "
+                                     "for two losses")
+            g_plain = plain_on_card(batch)
+            if mg.launches - before != 2:
+                raise AssertionError(f"{case}: the plain path launched the kernel")
+            g_cpu = grads(ac_cpu, ppo.AgentData(*[x.cpu() for x in batch]))
+            with torch.no_grad():   # the encoder's forward error on these rows
+                feat = ac_card.encoder(batch.obs_self, batch.obs_nbr, batch.obs_mask)
+                feat_cpu = ac_cpu.encoder(*[x.cpu() for x in batch[:3]])
+            report[case] = {"rows_multi_slot": int((batch.obs_mask.sum(-1) > 1).sum()),
+                            "encoder_max_abs_err": (feat.cpu() - feat_cpu).abs().max().item()}
+            for loss, ref in g_cpu.items():
+                if set(g_card[loss]) != set(ref) or set(g_plain[loss]) != set(ref):
+                    raise AssertionError(f"{case}/{loss}: other parameters got gradients")
+                for group in groups:
+                    names = [n for n in ref if n.startswith(group)]
+                    if not names:
+                        continue
+
+                    def flat(gr):
+                        return torch.cat([gr[n].flatten() for n in names])
+                    r = flat(ref)
+                    scale = r.abs().max().item()
+                    err = (flat(g_card[loss]) - r).abs().max().item()
+                    err_plain = (flat(g_plain[loss]) - r).abs().max().item()
+                    rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+                    rel_plain = err_plain / scale if scale > 0 else 0.0
+                    report[case][f"{loss}/{group}"] = {
+                        "max_abs_err": err, "max_abs_grad": scale, "rel_err": rel,
+                        "card_plain_rel_err": rel_plain}
+                    if not rel <= max(GRAD_RTOL, 2 * rel_plain):
+                        failed.append(f"{case}/{loss}/{group}")
+        # the kernel at the rollout rows' masks (the encoder's view of them)
+        enc = ac_card.encoder
+        mask = rows.obs_mask
+        last = torch.zeros(nm, dtype=torch.bool, device=dev)
+        last[-1] = True
+        mask = torch.where(mask.any(-1, keepdim=True), mask, last)
+        xs = rows.obs_nbr.to(torch.float32).transpose(0, 1)
+        ms = mask.to(torch.float32).t()
+        with torch.no_grad():
+            fwd, bwd = enc.fwd.weights(), enc.bwd.weights()
+            timing = {"kernel_bigru_ms": cuda_ms(
+                          lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd), 20),
+                      "plain_bigru_ms": cuda_ms(
+                          lambda: mg.masked_bigru_scan_plain(xs, ms, fwd, bwd), 5)}
+            gru = torch.nn.GRU(xs.shape[-1], enc.hidden_dim, bidirectional=True).to(dev)
+            x_dense = xs.contiguous()
+            timing["cudnn_bigru_unmasked_ms"] = cuda_ms(lambda: gru(x_dense), 20)
+        timing.update(bigru_bound(xs, ms, fwd))
+        timing["active_slots_per_row"] = float(ms.sum() / ms.shape[1])
+
+        # where an update iteration's time goes (kernel forward, plain backward)
+        def fwd_bwd(loss):
+            ac_card.zero_grad(set_to_none=True)
+            loss().backward()
+        pi_loss = lambda: ppo.pi_loss_fn(ac_card, rows, tr.clip_ratio, tr.adv_norm,
+                                         tr.ent_coef)[0]
+        v_loss = lambda: ppo.v_loss_fn(ac_card, rows, tr.value_clip)
+        timing["update_iteration_ms"] = {
+            "pi_loss_forward": cuda_ms(pi_loss, 10),
+            "pi_loss_forward_backward": cuda_ms(lambda: fwd_bwd(pi_loss), 10),
+            "v_loss_forward_backward": cuda_ms(lambda: fwd_bwd(v_loss), 10)}
+        ac_card.zero_grad(set_to_none=True)
+        if failed:
+            raise AssertionError(f"gradients past rel {GRAD_RTOL}: {failed}: {report}")
+        return {"rows": GRAD_ROWS, "rel_tol": GRAD_RTOL, "cases": report,
+                "timed_at_rollout_rows": timing}
+    run_phase("train_grad_kernel_vs_plain", train_grad_check)
+    launches = sum(launches_by_phase.values())
+
     emit({"kernels": [{
         "name": "masked_gru", "route": "cuda",
         "source": "rvo3d_tpu_torch/csrc/masked_gru.cu",
@@ -414,7 +687,8 @@ def main(argv=None) -> int:
         "ms": kstats["ms"], "plain_ms": kstats["plain_ms"],
         "bound_ms": kstats["bound_ms"], "bound_by": kstats["bound_by"],
         "library_ms": kstats["library_ms"],
-        "bound_ms_f32_simt": kstats["bound_ms_f32_simt"]}]})
+        "bound_ms_f32_simt": kstats["bound_ms_f32_simt"],
+        "launches_by_phase": launches_by_phase}]})
     if launches == 0:
         print("chip_smoke: the main path launched no masked GRU kernel", file=sys.stderr)
         return 1

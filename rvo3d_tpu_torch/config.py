@@ -1,10 +1,10 @@
-"""Typed configuration for the env and the policy.
+"""Typed configuration for the env, the policy and training.
 
 The port's own copy of the JAX package's `EnvParams`, `ModelConfig`,
 `TrainConfig`, `MeshConfig` and `Config` (rvo3d_tpu/config.py), field for
 field, so a run directory's `config.json` written by either package loads
-in both. Training fields are kept only so such files load; the trainer is
-not ported yet.
+in both. The port's trainer (algo/trainer.py) reads TrainConfig; MeshConfig
+is kept so that such files load (the port runs on one card).
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """PPO hyperparameters, kept so that config.json files load."""
+    """PPO hyperparameters (algo/rollout.py, algo/ppo.py, algo/trainer.py)."""
 
     pi_lr: float = 4e-6
     vf_lr: float = 5e-5

@@ -17,10 +17,18 @@ PI = math.pi
 
 
 def rnd(x: torch.Tensor, decimals: int, enabled: bool = True) -> torch.Tensor:
-    """Parity rounding: scale, round half to even, unscale (as np.round)."""
+    """Parity rounding: scale, round half to even, unscale. float64 divides
+    by the scale, as np.round does (the reference env). float32 multiplies
+    by the scale's float32 reciprocal, as XLA compiles the JAX package's
+    jnp.round (the arithmetic its policies were trained under): the two
+    differ by one ulp on most values, and a 3-decimal value rounded again
+    to 2 decimals can then land on the other side of a tie."""
     if not enabled:
         return x
-    return torch.round(x, decimals=decimals)
+    if x.dtype == torch.float64:
+        return torch.round(x, decimals=decimals)
+    scale = 10.0 ** decimals
+    return torch.round(x * scale) * (1.0 / scale)
 
 
 def wraptopi(theta: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,7 @@ class MLP(nn.Module):
             layer.reset_parameters(generator)
 
     def forward(self, x):
+        x = x.to(self.layers[0].weight.dtype)
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             x = layer(x)
@@ -94,7 +95,10 @@ class ActorCritic(nn.Module):
         return torch.clamp(std_factor * torch.exp(self.log_std) + 1e-6, 1e-4, 10.0)
 
     def forward(self, obs_self, obs_nbr, obs_mask, std_factor: float = 1.0):
-        """(mu, std, value) for one batch of observations."""
+        """(mu, std, value) for one batch of observations, in the
+        parameters' dtype (float32) whatever the observations' dtype."""
+        dtype = self.log_std.dtype
+        obs_self, obs_nbr = obs_self.to(dtype), obs_nbr.to(dtype)
         feat = self.encoder(obs_self, obs_nbr, obs_mask)
         mu = self.actor(feat)
         v = self.critic(feat).squeeze(-1)

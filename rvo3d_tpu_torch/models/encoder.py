@@ -69,6 +69,8 @@ class NeighborEncoder(nn.Module):
         self.ln.reset_parameters()
 
     def forward(self, self_state, neighbors, mask):
+        dtype = self.ln.weight.dtype          # inputs take the parameters' dtype
+        self_state, neighbors = self_state.to(dtype), neighbors.to(dtype)
         nm = neighbors.shape[-2]
         lead = neighbors.shape[:-2]
         last = torch.zeros(nm, dtype=torch.bool, device=mask.device)
@@ -82,4 +84,4 @@ class NeighborEncoder(nn.Module):
         else:
             hn = self.fwd(xs, ms)
         hn = hn.reshape(lead + (self.hidden_dim,))
-        return self.ln(torch.cat([self_state.to(hn.dtype), hn], dim=-1))
+        return self.ln(torch.cat([self_state, hn], dim=-1))

@@ -4,14 +4,19 @@ H = 256, S = 10), with a ragged B, an all-empty mask and the encoder's
 strided reverse direction; over B in {1, 31, 2048, 4089, 4096, 65536} and
 H in {32, 100, 256} with random, empty, full and env-like suffix masks, one
 direction each way and both directions fused in one launch; the policy
-through the kernel against the same policy on the CPU; and a short
-evaluate that must launch the kernel.
+through the kernel against the same policy on the CPU; a short evaluate
+that must launch the kernel; and the training path's gradients (kernel
+forward, plain backward) of masked_bigru_scan and of the ActorCritic pi-
+and v-losses at B = 2048 (a rollout step of 128 lanes x 16 drones) and
+16384 (the PPO minibatch) against the same on the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 Tolerance: atol 1e-4 in f32 with TF32 off (summation order over 265 terms
-and 10 steps)."""
+and 10 steps); gradients: max |card - CPU| <= 1e-3 of the largest |CPU|
+gradient of each tensor, or, for the ActorCritic losses, no more than
+twice the card's plain path's distance from the CPU (see that test)."""
 
 import numpy as np
 import pytest
@@ -155,3 +160,84 @@ def test_evaluate_launches_kernel(cuda):
                  max_chunks=2)
     assert mg.launches > before
     assert m["episodes"] == 4 and np.isfinite(m["mean_speed"])
+
+
+@pytest.mark.parametrize("b", [2048, 16384])
+def test_bigru_grads_kernel_forward_match_cpu(cuda, b):
+    g = torch.Generator().manual_seed(b)
+    xs = torch.randn(S, b, IN, generator=g)
+    mask = masks("suffix", b, g)
+    bound = 1.0 / H ** 0.5
+    w = [torch.empty(shape).uniform_(-bound, bound, generator=g)
+         for _ in range(2) for shape in ((IN, 3 * H), (H, 3 * H), (3 * H,), (3 * H,))]
+    up = torch.randn(b, H, generator=g)
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_() for t in [xs] + w]
+        before = mg.launches
+        out = mg.masked_bigru_scan(leaves[0], mask.to(device), leaves[1:5], leaves[5:])
+        launched = mg.launches - before
+        (out * up.to(device)).sum().backward()
+        return [t.grad.cpu() for t in leaves], launched
+
+    got, launched = grads(cuda)
+    ref, _ = grads("cpu")
+    assert launched == 1
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert (a - r).abs().max() <= 1e-3 * r.abs().max(), i
+
+
+@pytest.mark.parametrize("b", [2048, 16384])
+def test_actor_critic_loss_grads_match_cpu(cuda, b, monkeypatch):
+    """The kernel path's pi- and v-loss gradients against the CPU's, with
+    the card's plain path (the encoder's biGRU through the plain scans on
+    the card) as the yardstick: at B = 16384 the card's float32 pi-loss
+    gradients can differ from the CPU's by more than 1e-3 of a tensor's
+    largest gradient with or without the kernel
+    (tests/torch_grad_precision.py), so each tensor must be within 1e-3
+    of its largest CPU gradient, or no further from the CPU than twice
+    the card's plain path is."""
+    import rvo3d_tpu_torch.models.encoder as encoder
+    from rvo3d_tpu_torch.algo import ppo
+
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(3),
+                     device=cuda)
+    ac_cpu = ActorCritic(ModelConfig(), device="cpu")
+    ac_cpu.load_state_dict(ac.state_dict())
+    g = torch.Generator().manual_seed(4)
+    k = torch.randint(0, 11, (b, 1), generator=g)
+    mask = torch.arange(10)[None, :] >= 10 - k
+    nbr = torch.randn(b, 10, 9, generator=g) * mask[..., None]
+    obs_self = torch.randn(b, 12, generator=g)
+    with torch.no_grad():
+        mu, std, v = ac_cpu(obs_self, nbr, mask)
+        act = torch.round(mu + std * torch.randn(mu.shape, generator=g), decimals=2)
+        logp = ac_cpu.logp(obs_self, nbr, mask, act)
+    batch = ppo.AgentData(obs_self, nbr, mask, act, torch.randn(b, generator=g),
+                          v + torch.randn(b, generator=g), logp, v)
+    card_batch = ppo.AgentData(*[x.to(cuda) for x in batch])
+
+    def grads(model, data):
+        out = []
+        for loss_fn in (lambda: ppo.pi_loss_fn(model, data, 0.2)[0],
+                        lambda: ppo.v_loss_fn(model, data)):
+            model.zero_grad(set_to_none=True)
+            loss_fn().backward()
+            out.append({n: p.grad.cpu() for n, p in model.named_parameters()
+                        if p.grad is not None})
+        return out
+
+    before = mg.launches
+    kernel = grads(ac, card_batch)
+    assert mg.launches == before + 2
+    with monkeypatch.context() as m:
+        m.setattr(encoder, "masked_bigru_scan", mg.masked_bigru_scan_plain)
+        plain = grads(ac, card_batch)
+    assert mg.launches == before + 2
+    for g_kernel, g_plain, g_cpu in zip(kernel, plain, grads(ac_cpu, batch)):
+        assert g_kernel.keys() == g_cpu.keys() == g_plain.keys()
+        for n, r in g_cpu.items():
+            err = (g_kernel[n] - r).abs().max()
+            yardstick = (g_plain[n] - r).abs().max()
+            assert err <= max(1e-3 * r.abs().max(), 2 * yardstick) + 1e-12, (
+                n, float(err), float(yardstick), float(r.abs().max()))

@@ -1,8 +1,9 @@
 """The port's policy (rvo3d_tpu_torch/models) against the JAX ActorCritic
 under the same weights, carried across by rvo3d_tpu_torch/utils/convert.py:
 mu, std, v, logp and entropy at atol 1e-5 in f32 on ragged neighbour
-masks, including all-empty rows, for GRU and biGRU; the converter round
-trip is exact."""
+masks, including all-empty rows, for GRU and biGRU; float64 observations
+give the same float32 outputs as flax under jax_enable_x64, at 1e-5; the
+converter round trip is exact."""
 
 import numpy as np
 import pytest
@@ -153,3 +154,24 @@ def test_unported_modes_raise():
         ActorCritic(ModelConfig(rnn_mode="LSTM", **SMALL), device="cpu")
     with pytest.raises(NotImplementedError):
         ActorCritic(ModelConfig(compute_dtype="bfloat16", **SMALL), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["GRU", "biGRU"])
+def test_float64_observations_match_flax_under_x64(mode):
+    """Float64 observations (a float64 env's) are cast to the parameters'
+    float32, as the flax modules cast them: mu, std and v come back
+    float32 and equal flax's under jax_enable_x64 at atol 1e-5."""
+    jac, params = jax_policy(mode)
+    ac = port_policy(mode, params)
+    obs_self, nbr, mask = ragged_obs(seed=5)
+    obs64 = (obs_self.astype(np.float64) + 1e-9, nbr.astype(np.float64), mask)
+    with jax.enable_x64(True):
+        ref = jac.apply(params, *map(jnp.asarray, obs64), 1.0)
+        v_ref = jac.apply(params, *map(jnp.asarray, obs64), method=JActorCritic.value)
+    with torch.no_grad():
+        t_obs = [torch.from_numpy(o) for o in obs64]
+        got = ac(*t_obs)
+        v_only = ac.value(*t_obs)
+    for g, r in zip(got + (v_only,), tuple(ref) + (v_ref,)):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=1e-6)
