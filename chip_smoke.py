@@ -28,6 +28,18 @@ minibatch 16384, 20 pi / 50 v iterations; one line per epoch), and holds
 the pi- and v-loss gradients of 16384 of its rows, as they are and with
 random neighbour masks, kernel forward on the card against the plain path
 on the CPU (`train_grad_kernel_vs_plain`).
+
+Then the multi-world slice: world32_mix and its route-reversed variant in
+alternate lanes (64 lanes x 32 drones, float64) stepped on the card
+against the CPU and each lane against its own world's single-world run
+(`multi_world_env_card_vs_cpu`); the committed w32_m3s product
+(rvo3d_tpu_torch/assets/w32_m3s_e5.pt) scored det on both populations
+(`w32_product_eval`); and the w32_m3s recipe through the port's own CLI
+in-process (`bc_ppo_recipe`: BC on the RVO expert with 3 DAgger rounds,
+then PPO, 64 lanes x 32 drones, biGRU-256, batch 4096, minibatch 16384;
+one `bc_round` line per fit, one `ppo_epoch` line per epoch, the kernel
+held to its plain version at the rows the path gave it, and the gate:
+det success >= 0.8 on both populations at the best persisted epoch).
 Each phase prints one JSON line with its wall-clock seconds; a failed
 phase exits non-zero. The last line is {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero before printing any result.
@@ -78,6 +90,41 @@ GRAD_RTOL = 1e-3       # per parameter group: max |card - CPU| <= 1e-3 max |CPU|
 PRODUCT_EPISODES = 256
 PRODUCT_MIN_SUCCESS = 0.85
 PRODUCT_EPLEN, PRODUCT_EPLEN_TOL = 30.91, 0.3
+# The w32_m3s product (runs/w32_m3s epoch 5) on both world32_mix
+# populations, det (std factor 1e-3), 256 episodes each. The gate per
+# population is set from the JAX package's own score off the TPU
+# (tests/torch_eval_cpu.py --product w32_m3s [--reverse], seeds 0-3, 100
+# episodes each): success 1.0 and EpLen 29.0 +- 0.0 on world32_mix, 1.0
+# and 30.0 +- 0.0 on its reversal, for the JAX package and the port alike
+# (the TPU run's epoch-5 line: 100 %, 29.0 and 30.0).
+W32_PARAMS = os.path.join(ASSETS, "w32_m3s_e5.pt")
+W32_CONFIG = os.path.join(ASSETS, "w32_m3s_config.json")
+W32_POPULATIONS = ("world32_mix", "world32_mix:rev")
+W32_EPISODES = 256
+W32_GATE = {"world32_mix": {"min_success": 0.95, "ep_len": (29.0, 0.3)},
+            "world32_mix:rev": {"min_success": 0.95, "ep_len": (30.0, 0.3)}}
+MULTI_LANES, MULTI_STEPS = 64, 100
+# The w32_m3s recipe (scripts/round5_tpu_queue3.sh:97-105) through the
+# port's CLI at full width and depth: no cut (a cut would go, in this
+# order, to PPO epochs, eval episodes, DAgger rounds, and be printed)
+RECIPE_EPOCHS = 10
+RECIPE_EVAL_EPISODES = 100
+RECIPE_DAGGER = 3
+RECIPE_MIN_SUCCESS = 0.8      # det, worst population, best persisted epoch
+RECIPE_MIN_EPISODES = 64
+
+
+def recipe_argv(run_dir):
+    return ["train", "--device", "cuda", "--world", "world32_mix",
+            "--num_envs", "64", "--steps_per_epoch", "300", "--action_mode", "direct",
+            "--log_std_init", "-2.3", "--target_kl", "0.01", "--train_pi_iters", "20",
+            "--train_v_iters", "50", "--batched_update", "--minibatch", "16384",
+            "--pi_lr", "1e-6", "--vf_lr", "5e-5", "--save_freq", "5",
+            "--eval_every", "5", "--eval_episodes", str(RECIPE_EVAL_EPISODES), "--seed", "7",
+            "--vf_no_encoder", "--quiet", "--multi_worlds", "world32_mix,world32_mix:rev",
+            "--bc_steps", "2000", "--bc_expert", "rvo", "--bc_dagger", str(RECIPE_DAGGER),
+            "--bc_noise", "0.1", "--bc_margin", "0.3", "--bc_slowdown",
+            "--train_epoch", str(RECIPE_EPOCHS), "--run_dir", run_dir]
 
 
 def emit(obj) -> None:
@@ -140,6 +187,19 @@ def bigru_bound(xs, ms, fwd):
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ms_f32_simt": max(flops / F32_PEAK, t_bytes) * 1e3}
+
+
+def encoder_view(obs_nbr, obs_mask):
+    """The biGRU's inputs as the encoder builds them: a row with no valid
+    slot activates its last (zero) slot; [S, B, IN] and [S, B] views."""
+    import torch
+
+    nm = obs_mask.shape[-1]
+    last = torch.zeros(nm, dtype=torch.bool, device=obs_mask.device)
+    last[-1] = True
+    mask = torch.where(obs_mask.any(-1, keepdim=True), obs_mask, last)
+    return (obs_nbr.reshape(-1, nm, obs_nbr.shape[-1]).float().transpose(0, 1),
+            mask.reshape(-1, nm).float().t())
 
 
 def main(argv=None) -> int:
@@ -677,6 +737,357 @@ def main(argv=None) -> int:
         return {"rows": GRAD_ROWS, "rel_tol": GRAD_RTOL, "cases": report,
                 "timed_at_rollout_rows": timing}
     run_phase("train_grad_kernel_vs_plain", train_grad_check)
+
+    # ---- multi-world lanes: world32_mix and its route-reversed variant in
+    # alternate lanes, float64, on the card against the CPU, and each lane
+    # against the single-world run of its own world (CPU) ----
+    from rvo3d_tpu_torch.worlds.multi import MultiWorldEnv, reverse_routes
+
+    wd32 = load_world("world32_mix")
+
+    def pop_spec(pop, device, dtype=torch.float32):
+        spec = wd32.spec(dtype=dtype, device=device)
+        return reverse_routes(spec) if pop.endswith(":rev") else spec
+
+    def multi_env_check():
+        p64 = EnvParams(num_drones=wd32.drone_num)
+        idx = torch.arange(MULTI_LANES) % len(W32_POPULATIONS)
+        envs = [MultiWorldEnv([pop_spec(k, d, torch.float64) for k in W32_POPULATIONS],
+                              idx, p64) for d in (dev, "cpu")]
+        singles = [DroneEnv(pop_spec(k, "cpu", torch.float64), p64,
+                            num_envs=int((idx == i).sum()))
+                   for i, k in enumerate(W32_POPULATIONS)]
+        states = [e.reset_batch()[0] for e in envs]
+        s_states = [e.reset()[0] for e in singles]
+        rng = np.random.default_rng(SEED)
+        worst = {"card_vs_cpu": 0.0, "lane_vs_single": 0.0}
+        seen = {"collisions": 0, "finished": 0, "neighbour_slots": 0}
+
+        def compare(key, a_out, b_out, sel=slice(None)):
+            for name in ("done", "info_arrive", "finish", "obs_mask"):
+                a, b = getattr(a_out, name).cpu()[sel], getattr(b_out, name).cpu()
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{key}: {name} differs")
+            for name in ("obs_self", "obs_nbr", "reward"):
+                a, b = getattr(a_out, name).cpu()[sel], getattr(b_out, name).cpu()
+                fin = torch.isfinite(b)
+                if not torch.equal(fin, torch.isfinite(a)):
+                    raise AssertionError(f"{key}: {name} inf pattern differs")
+                worst[key] = max(worst[key], (a[fin] - b[fin]).abs().max().item())
+
+        for _ in range(MULTI_STEPS):
+            lw = envs[1].lane_worlds
+            noise = torch.from_numpy(
+                0.3 * rng.standard_normal((MULTI_LANES, wd32.drone_num, 3)))
+            act = geo.rnd(waypoint_controller(states[1], lw) + noise, 2)
+            (sg, og), (sc, oc) = [e.step_batch(st, act.to(e.lane_worlds.device))
+                                  for e, st in zip(envs, states)]
+            compare("card_vs_cpu", og, oc)
+            worst["card_vs_cpu"] = max(worst["card_vs_cpu"],
+                                       (sg.pos.cpu() - sc.pos).abs().max().item())
+            need = oc.done | oc.finish
+            sg = envs[0].reset_where_batch(sg, need.to(dev))
+            sc = envs[1].reset_where_batch(sc, need)
+            (rg, sg), (rc, sc) = envs[0].observe_batch(sg), envs[1].observe_batch(sc)
+            compare("card_vs_cpu", rg, rc)
+            for i, env in enumerate(singles):
+                lanes = idx == i
+                st, o = env.step(s_states[i], act[lanes])
+                compare("lane_vs_single", oc, o, lanes)
+                st = env.reset_where(st, need[lanes])
+                r, st = env.observe(st)
+                compare("lane_vs_single", rc, r, lanes)
+                s_states[i] = st
+            states = [sg, sc]
+            seen["collisions"] += int(oc.done.sum())
+            seen["finished"] += int(oc.finish.sum())
+            seen["neighbour_slots"] += int(oc.obs_mask.sum())
+        for key, err in worst.items():
+            if not err <= 1e-12:
+                raise AssertionError(f"{key}: max |diff| {err} > 1e-12")
+        return {"worlds": list(W32_POPULATIONS), "lanes": MULTI_LANES,
+                "drones": wd32.drone_num, "steps": MULTI_STEPS, "dtype": "float64",
+                "max_abs_diff": worst, "atol": 1e-12, **seen, "card": smi}
+    run_phase("multi_world_env_card_vs_cpu", multi_env_check)
+
+    # ---- the committed w32_m3s product on both world32_mix populations ----
+    with open(W32_CONFIG) as f:
+        w32_cfg = from_dict(json.load(f))
+
+    def w32_product_eval():
+        server = PolicyServer.from_checkpoint(W32_PARAMS, device=dev)
+        out, failed = {}, []
+        mg.launches = 0
+        for pop in W32_POPULATIONS:
+            t0 = time.perf_counter()
+            m = evaluate(server.ac, pop_spec(pop, dev), w32_cfg.env,
+                         generator=torch.Generator(device=dev).manual_seed(SEED),
+                         num_episodes=W32_EPISODES, num_lanes=128, chunk_len=40,
+                         max_chunks=8, std_factor=w32_cfg.train.std_factor_eval,
+                         action_mode=w32_cfg.train.action_mode)
+            torch.cuda.synchronize()
+            gate = W32_GATE[pop]
+            (eplen, tol) = gate["ep_len"]
+            if (m.get("truncated") or m["episodes"] < W32_EPISODES
+                    or m["success_rate"] < gate["min_success"]
+                    or abs(m["mean_ep_len"] - eplen) > tol):
+                failed.append(pop)
+            out[pop] = {**m, "seconds": time.perf_counter() - t0, "gate": gate}
+        n = mg.launches
+        launches_by_phase["w32_product_eval"] = n
+        if n == 0:
+            raise AssertionError("w32_product_eval never launched the masked GRU kernel")
+        if failed:
+            raise AssertionError(f"the w32_m3s product misses its gate on {failed}: {out}")
+        return {"lanes": 128, "drones": wd32.drone_num, "gru_launches": n,
+                "populations": out, "card": smi}
+    run_phase("w32_product_eval", w32_product_eval)
+
+    # ---- the w32_m3s recipe through the port's CLI: BC on the RVO expert
+    # with DAgger, then PPO, both populations, full width ----
+    def bc_ppo_recipe():
+        import tempfile
+
+        from rvo3d_tpu_torch import cli
+        from rvo3d_tpu_torch.algo import bc, evaluator, trainer as trainer_mod
+        from rvo3d_tpu_torch.env import rvo_policy
+
+        # the expert alone at the demos' width (32 lanes x 32 drones)
+        p32 = dataclasses.replace(w32_cfg.env, noise=False)
+        lw32 = pop_spec(W32_POPULATIONS[0], dev)
+        st32 = DroneEnv(lw32, p32, num_envs=32).reset()[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rvo_policy.rvo_controller(st32, lw32, p32, margin=0.3, slowdown=True)
+        torch.cuda.synchronize()
+        expert_peak = torch.cuda.max_memory_allocated() - base
+        expert_ms = cuda_ms(lambda: rvo_policy.rvo_controller(st32, lw32, p32, margin=0.3,
+                                                              slowdown=True), 5, warmup=1)
+        del st32, lw32
+
+        launches = {"demos_dagger": 0, "fit": 0, "rollout": 0, "update": 0, "eval": 0}
+        rounds, epochs, evals = [], [], []
+        seen = {}     # the policy and rows the path fed the kernel, kept for the checks
+        cur = {"collect_s": 0.0, "demo_steps": 0, "expert_events": [],
+               "launches_demos": 0}
+        real = {"collect": bc.collect_demos, "fit": bc.fit,
+                "expert": rvo_policy.rvo_controller, "run_epoch": trainer_mod.Trainer.run_epoch,
+                "evaluate": evaluator.evaluate}
+
+        def expert(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real["expert"](*a, **k)
+            e1.record()
+            cur["expert_events"].append((e0, e1))
+            return out
+
+        def collect(*a, **k):
+            behave = k.get("behavior_fn")
+            if behave is not None and "dagger_obs" not in seen:
+                calls = [0]
+
+                def keep(obs_self, obs_nbr, obs_mask):
+                    # the first DAgger rollout's own rows, halfway through it
+                    calls[0] += 1
+                    if calls[0] == a[3] // 2:
+                        seen["dagger_obs"] = (obs_nbr.clone(), obs_mask.clone())
+                    return behave(obs_self, obs_nbr, obs_mask)
+                k["behavior_fn"] = keep
+            l0 = mg.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real["collect"](*a, **k)
+            torch.cuda.synchronize()
+            cur["collect_s"] += time.perf_counter() - t0
+            cur["demo_steps"] += a[3]
+            cur["launches_demos"] += mg.launches - l0
+            return out
+
+        def fit(*a, **k):
+            seen["ac"], seen["bc_data"], seen["bc_rows"] = a[0], a[1], a[2]
+            l0 = mg.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = real["fit"](*a, **k)
+            torch.cuda.synchronize()
+            fit_s, steps = time.perf_counter() - t0, a[3]
+            ex = [e0.elapsed_time(e1) for e0, e1 in cur["expert_events"]]
+            line = {"phase": "bc_round", "round": len(rounds),
+                    "collect_s": cur["collect_s"], "demo_steps": cur["demo_steps"],
+                    "expert_ms_per_step": sum(ex) / max(len(ex), 1),
+                    "collect_ms_per_step": 1e3 * cur["collect_s"] / max(cur["demo_steps"], 1),
+                    "fit_s": fit_s, "fit_steps": steps,
+                    "fit_ms_per_step": 1e3 * fit_s / max(steps, 1), "batch": a[4],
+                    "rows": a[2], "loss": loss,
+                    "gru_launches_demos": cur["launches_demos"],
+                    "gru_launches_fit": mg.launches - l0, "card": smi}
+            emit(line)
+            rounds.append(line)
+            launches["demos_dagger"] += cur["launches_demos"]
+            launches["fit"] += mg.launches - l0
+            cur.update(collect_s=0.0, demo_steps=0, expert_events=[], launches_demos=0)
+            return loss
+
+        def run_epoch(self):
+            marks = []
+
+            def hook(name, data):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((ev, mg.launches))
+                if name == "gae":
+                    active = data.obs_mask.sum(-1)
+                    rows.update(rows=active.numel(), any=(active > 0).sum(),
+                                multi=(active > 1).sum())
+                    seen.setdefault("rollout_obs", (data.obs_nbr[-1].clone(),
+                                                    data.obs_mask[-1].clone()))
+            rows = {}
+            self.phase_hook = hook
+            m = real["run_epoch"](self)
+            torch.cuda.synchronize()
+            (e0, l0), (e1, l1), (e2, l2), (e3, l3) = marks
+            line = {"phase": "ppo_epoch", "epoch": len(epochs),
+                    "epoch_time_s": m["epoch_time_s"], "steps_per_sec": m["steps_per_sec"],
+                    "rollout_ms": e0.elapsed_time(e1), "gae_ms": e1.elapsed_time(e2),
+                    "update_ms": e2.elapsed_time(e3),
+                    "gru_launches_rollout": l1 - l0, "gru_launches_update": l3 - l2,
+                    "pi_iters": m["pi_iters"], "kl": m["kl"], "pi_loss": m["pi_loss"],
+                    "v_loss": m["v_loss"], "mean_step_reward": m["mean_step_reward"],
+                    "episodes": sum(m["episodes"]),
+                    "success_episodes": sum(m["success_episodes"]),
+                    "collision_episodes": sum(m["collision_episodes"]),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "rollout_rows": rows["rows"],
+                    "rollout_rows_with_neighbour": int(rows["any"]),
+                    "rollout_rows_multi_slot": int(rows["multi"]), "card": smi}
+            emit(line)
+            epochs.append(line)
+            launches["rollout"] += l1 - l0
+            launches["update"] += l3 - l2
+            return m
+
+        def evaluate_counted(*a, **k):
+            l0 = mg.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = real["evaluate"](*a, **k)
+            torch.cuda.synchronize()
+            evals.append({**m, "seconds": time.perf_counter() - t0,
+                          "gru_launches": mg.launches - l0})
+            launches["eval"] += mg.launches - l0
+            return m
+
+        with tempfile.TemporaryDirectory() as tmp:
+            run_dir = os.path.join(tmp, "w32_m3s")
+            argv = recipe_argv(run_dir)
+            bc.collect_demos, bc.fit = collect, fit
+            rvo_policy.rvo_controller = expert
+            trainer_mod.Trainer.run_epoch = run_epoch
+            evaluator.evaluate = evaluate_counted
+            torch.cuda.reset_peak_memory_stats()
+            mg.launches = 0
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(argv)
+            finally:
+                bc.collect_demos, bc.fit = real["collect"], real["fit"]
+                rvo_policy.rvo_controller = real["expert"]
+                trainer_mod.Trainer.run_epoch = real["run_epoch"]
+                evaluator.evaluate = real["evaluate"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            total = mg.launches
+            with open(os.path.join(run_dir, "results.txt")) as f:
+                results = [ln.rstrip("\n") for ln in f]
+            with open(os.path.join(run_dir, "best_checkpoint.json")) as f:
+                best = json.load(f)
+            with open(os.path.join(run_dir, "train.jsonl")) as f:
+                train_lines = [json.loads(ln) for ln in f if ln.strip()]
+        emit({"phase": "recipe_results", "results": results, "best_checkpoint": best,
+              "card": smi})
+        launches_by_phase["bc_ppo_recipe"] = total
+
+        # the kernel at the rows this path gave it, against its plain
+        # version (not counted): 4096 rows drawn from the final BC set as
+        # the fit draws its batch, the first DAgger rollout's own B = 1024
+        # (32 lanes x 32 drones, its middle step) and the PPO rollout's
+        # B = 2048 (64 x 32, epoch 0's last step)
+        enc = seen["ac"].encoder
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        pick = torch.randperm(seen["bc_rows"], generator=g, device=dev)
+        cases = {"bc_fit_4096": [x[pick[:4096]] for x in seen["bc_data"][1:3]],
+                 "dagger_1024": list(seen["dagger_obs"]),
+                 "ppo_rollout_2048": list(seen["rollout_obs"])}
+        at_rows = {}
+        with torch.no_grad():
+            fwd, bwd = enc.fwd.weights(), enc.bwd.weights()
+            gru = torch.nn.GRU(fwd[0].shape[0], enc.hidden_dim, bidirectional=True).to(dev)
+            for label, (nbr, mask) in cases.items():
+                xs, ms = encoder_view(nbr, mask)
+                l0 = mg.launches
+                err = (mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd)
+                       - mg.masked_bigru_scan_plain(xs, ms, fwd, bwd)).abs().max().item()
+                x_dense = xs.contiguous()
+                row = {"B": int(xs.shape[1]), "max_abs_err": err,
+                       "active_slots_per_row": float(ms.sum() / ms.shape[1]),
+                       "kernel_bigru_ms": cuda_ms(
+                           lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd), 20),
+                       "plain_bigru_ms": cuda_ms(
+                           lambda: mg.masked_bigru_scan_plain(xs, ms, fwd, bwd), 5),
+                       "cudnn_bigru_unmasked_ms": cuda_ms(lambda: gru(x_dense), 20),
+                       **bigru_bound(xs, ms, fwd)}
+                mg.launches = l0
+                at_rows[label] = row
+                if not err <= ATOL:
+                    raise AssertionError(f"{label}: max |kernel - plain| {err} > {ATOL}")
+        del seen
+
+        problems = []
+        if rc != 0:
+            problems.append(f"cli exit code {rc}")
+        finite = [r["loss"] for r in rounds] + [
+            x for ln in epochs for k in ("pi_loss", "v_loss", "kl") for x in ln[k]] + [
+            ln["mean_step_reward"] for ln in epochs] + [
+            e[k] for e in evals for k in ("success_rate", "mean_ep_len", "mean_speed")]
+        if not all(np.isfinite(finite)):
+            problems.append("non-finite metrics")
+        for part, n in launches.items():
+            if n == 0:
+                problems.append(f"no kernel launch in {part}")
+        if sum(launches.values()) != total:
+            problems.append(f"{total} launches in the run, {sum(launches.values())} "
+                            "in its sub-phases")
+        if len(rounds) != RECIPE_DAGGER + 1 or len(epochs) != RECIPE_EPOCHS + 1:
+            problems.append(f"{len(rounds)} BC rounds, {len(epochs)} PPO epochs")
+        # the best persisted epoch's det score, worst population (evaluate
+        # calls and results.txt lines come in the same order)
+        best_evals = [e for e, r in zip(evals, results)
+                      if r.startswith(f"epoch {best['epoch']} [")]
+        if (best["epoch"] is None or len(best_evals) != len(W32_POPULATIONS)
+                or best["min_success_rate"] < RECIPE_MIN_SUCCESS
+                or min(e["episodes"] for e in best_evals) < RECIPE_MIN_EPISODES):
+            problems.append(f"best persisted checkpoint {best}: the gate is det "
+                            f"success >= {RECIPE_MIN_SUCCESS} on every population "
+                            f"over >= {RECIPE_MIN_EPISODES} episodes")
+        summary = {"argv": argv, "cuts": [], "wall_s": wall,
+                   "bc_s": sum(r["collect_s"] + r["fit_s"] for r in rounds),
+                   "ppo_s": sum(ln["epoch_time_s"] for ln in epochs),
+                   "eval_s": sum(e["seconds"] for e in evals),
+                   "gru_launches": launches, "max_memory_allocated": peak,
+                   "kernel_at_path_rows": at_rows, "atol": ATOL,
+                   "expert_alone": {"lanes": 32, "drones": wd32.drone_num,
+                                    "candidates": 729, "ms": expert_ms,
+                                    "peak_bytes": expert_peak},
+                   "best_checkpoint": best, "results": results,
+                   "train_jsonl_keys": sorted(train_lines[0]) if train_lines else [],
+                   "card": smi}
+        if problems:
+            raise AssertionError(f"{problems}: {summary}")
+        return summary
+    run_phase("bc_ppo_recipe", bc_ppo_recipe)
     launches = sum(launches_by_phase.values())
 
     emit({"kernels": [{

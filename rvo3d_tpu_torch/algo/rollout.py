@@ -14,7 +14,8 @@ rvo3d_tpu/algo/rollout.py; reference multi_ppo.training_loop):
     obs <- recomputed for every lane that reset anything
 
 Lanes and agents are tensor axes; the loop over T runs on the host and
-nothing in it reads back from the device.
+nothing in it reads back from the device. With a lane world
+(worlds/multi.py) lane e steps its own scenario.
 """
 
 from __future__ import annotations
@@ -28,10 +29,6 @@ from rvo3d_tpu_torch.env import geometry as geo
 from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
 from rvo3d_tpu_torch.env.state import DroneState, WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
-
-LANE_WORLDS_TODO = ("per-lane worlds (lane_worlds) are not ported yet "
-                    "(ROADMAP A13: multi-world training)")
-
 
 class EpisodeStats(NamedTuple):
     """Per-agent completed-episode aggregates, all [N]."""
@@ -96,12 +93,13 @@ def init_rollout_carry(world: WorldSpec, p: EnvParams, num_envs: int,
                        generator: torch.Generator, dtype=None,
                        lane_worlds=None) -> RolloutCarry:
     """Every lane reset and observed; `generator` lives on the world's
-    device and draws the actions (and the control noise)."""
-    if lane_worlds is not None:
-        raise NotImplementedError(LANE_WORLDS_TODO)
+    device and draws the actions (and the control noise). lane_worlds: an
+    optional lane world (leaves [num_envs, ...]); `world` then gives only
+    the static shapes."""
     dtype = dtype or world.dtype
-    state = reset(world, p, (num_envs,), dtype)
-    out, state = observe(world, state, p)
+    env_world = world if lane_worlds is None else lane_worlds
+    state = reset(env_world, p, (num_envs,), dtype)
+    out, state = observe(env_world, state, p)
     n = world.num_drones
     return RolloutCarry(
         env_state=state,
@@ -136,9 +134,10 @@ def rollout_epoch(ac: ActorCritic, world: WorldSpec, env_p: EnvParams,
                   cfg: TrainConfig, carry: RolloutCarry,
                   lane_worlds=None) -> Tuple[RolloutCarry, RolloutBatch]:
     """Collect cfg.steps_per_epoch steps across all E lanes with the
-    policy's current parameters."""
+    policy's current parameters. lane_worlds: an optional lane world
+    (leaves [E, ...]); `world` then gives only the static shapes."""
     if lane_worlds is not None:
-        raise NotImplementedError(LANE_WORLDS_TODO)
+        world = lane_worlds
     t_len = cfg.steps_per_epoch
     batch = _empty_batch(carry, t_len, ac.act_dim)
     gen = carry.generator

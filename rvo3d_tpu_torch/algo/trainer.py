@@ -44,11 +44,11 @@ class EpochOutput(NamedTuple):
 
 
 def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
-                     pi_opt, vf_opt):
+                     pi_opt, vf_opt, lane_worlds: Optional[WorldSpec] = None):
     """train_epoch(carry, generator, perm=None, offsets=None, on_phase=None)
     -> EpochOutput. `generator` (CPU) draws the agent order and minibatch
-    offsets; `perm`/`offsets` inject them (see ppo_update). One world for
-    all lanes (per-lane worlds: ROADMAP A13)."""
+    offsets; `perm`/`offsets` inject them (see ppo_update). lane_worlds: an
+    optional lane world (worlds/multi.py) that the rollout steps."""
     env_p, tr = cfg.env, cfg.train
     state = PPOState(ac, pi_opt, vf_opt)
 
@@ -57,7 +57,8 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
                     on_phase: Optional[PhaseHook] = None) -> EpochOutput:
         hook = on_phase or (lambda name, data: None)
         hook("rollout", None)
-        carry, batch = rollout_epoch(ac, world, env_p, tr, carry)
+        carry, batch = rollout_epoch(ac, world, env_p, tr, carry,
+                                     lane_worlds=lane_worlds)
         hook("gae", batch)
         adv, ret = gae_advantages(batch.rew, batch.val, batch.cut[:, :, None],
                                   tr.gamma, tr.lam)
@@ -107,14 +108,22 @@ class Trainer:
     Parameters come from ActorCritic's init with a generator seeded from
     cfg.train.seed (load others with `trainer.ac.load_state_dict`: the
     optimizers hold the same tensors). `phase_hook` (None by default) is
-    passed to every epoch as its on_phase callback."""
+    passed to every epoch as its on_phase callback. lane_worlds: an
+    optional lane world (leaves [num_envs, ...], worlds/multi.py) for
+    multi-scenario training; `world` then gives only the static shapes."""
 
-    def __init__(self, cfg: Config, world: WorldSpec, device="cuda"):
+    def __init__(self, cfg: Config, world: WorldSpec,
+                 lane_worlds: Optional[WorldSpec] = None, device="cuda"):
         if resolve_device(device).type != world.device.type:
             raise ValueError(f"world on {world.device}, trainer on {device}")
+        if lane_worlds is not None and (lane_worlds.lanes != cfg.train.num_envs
+                                        or lane_worlds.device != world.device):
+            raise ValueError(f"lane_worlds must have num_envs={cfg.train.num_envs} "
+                             f"lanes on {world.device}")
         self.device = world.device
         self.cfg = cfg
         self.world = world
+        self.lane_worlds = lane_worlds
         seed = cfg.train.seed
         self.ac = ActorCritic(cfg.model, generator=torch.Generator().manual_seed(seed),
                               device=self.device)
@@ -123,9 +132,10 @@ class Trainer:
         self.update_generator = torch.Generator().manual_seed(seed)
         self.carry = init_rollout_carry(
             world, cfg.env, cfg.train.num_envs,
-            torch.Generator(device=self.device).manual_seed(seed + 1))
+            torch.Generator(device=self.device).manual_seed(seed + 1),
+            lane_worlds=lane_worlds)
         self._train_epoch = make_train_epoch(self.ac, world, cfg, self.pi_opt,
-                                             self.vf_opt)
+                                             self.vf_opt, lane_worlds=lane_worlds)
         self.phase_hook: Optional[PhaseHook] = None
 
     def run_epoch(self) -> Dict[str, Any]:

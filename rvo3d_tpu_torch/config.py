@@ -124,6 +124,9 @@ class Config:
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     world: str = "world_3"
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
 
 def to_dict(cfg) -> dict:
     return dataclasses.asdict(cfg)

@@ -8,7 +8,9 @@ One step follows the reference's mdin.drone_step (mdin.py:19-30):
   3. observation and movement reward on post-step states
   4. reward = rvo + mov
 Lanes and agents are tensor axes; functions take the fleet state with any
-leading shape ([E, N, ...] or [N, ...]) against one WorldSpec.
+leading shape ([E, N, ...] or [N, ...]) against one WorldSpec, or an
+[E, N, ...] state against a lane world whose leaves lead with the same E
+(worlds/multi.py): lane e then steps its own world.
 """
 
 from __future__ import annotations
@@ -170,7 +172,7 @@ def step(world: WorldSpec, state: DroneState, abs_action: torch.Tensor,
     vo = vo_observe(states12_post, abs_action, world.buildings,
                     world.building_mask, p,
                     others=_vo_others(world, state, states12_post))
-    collision = vo.collision | geo.out_of_map(new_pos, world.map_size)
+    collision = vo.collision | geo.out_of_map(new_pos, world.map_size[..., None, :])
     exlen = real_route_len - route_len + 4.0
     r_mov = mov_reward(
         collision=collision, arrive_reward_flag=arrive_reward_flag,

@@ -27,7 +27,7 @@ class SphereSpec(NamedTuple):
 
     @property
     def count(self) -> int:
-        return self.init.shape[0]
+        return self.init.shape[-2]
 
 
 def make_sphere_spec(spheres: Optional[Sequence[dict]] = None,
@@ -62,22 +62,23 @@ def make_sphere_spec(spheres: Optional[Sequence[dict]] = None,
 def step_spheres(pos: torch.Tensor, vel: torch.Tensor, spec: SphereSpec,
                  map_size: torch.Tensor, dt: float,
                  goal_threshold: float = 0.1):
-    """Advance sphere states one step. pos/vel: [..., S, 3]."""
+    """Advance sphere states one step. pos/vel: [..., S, 3]; spec and
+    map_size ([3]) may carry a lane world's [E] axis in front."""
     if spec.count == 0:
         return pos, vel
-    radius = spec.init[:, 6:7]
+    radius = spec.init[..., 6:7]
     to_goal = spec.goal - pos
     dist = torch.sqrt(torch.sum(to_goal * to_goal, dim=-1, keepdim=True))
-    speed = torch.sqrt(torch.sum(spec.init[:, 3:6] ** 2, dim=-1, keepdim=True))
+    speed = torch.sqrt(torch.sum(spec.init[..., 3:6] ** 2, dim=-1, keepdim=True))
     goal_vel = torch.where(dist > goal_threshold,
                            to_goal / torch.clamp(dist, min=1e-9) * speed,
                            torch.zeros_like(to_goal))
-    model = spec.model[:, None]
+    model = spec.model[..., None]
     vel = torch.where(model == GOAL, goal_vel, vel)
     vel = torch.where(model == STATIC, torch.zeros_like(vel), vel)
     new_pos = pos + vel * dt
     lo = radius
-    hi = map_size[None, :] - radius
+    hi = map_size[..., None, :] - radius
     is_lin = model == LINEAR
     bounce = is_lin & ((new_pos < lo) | (new_pos > hi))
     vel = torch.where(bounce, -vel, vel)
@@ -89,7 +90,7 @@ def step_spheres(pos: torch.Tensor, vel: torch.Tensor, spec: SphereSpec,
 def sphere_states8(pos: torch.Tensor, vel: torch.Tensor,
                    spec: SphereSpec) -> torch.Tensor:
     """[..., S, 8] rows [pos, vel, radius, priority] for the VO 'others' block."""
-    rp = spec.init[:, 6:8].to(pos.dtype).expand(pos.shape[:-1] + (2,))
+    rp = spec.init[..., 6:8].to(pos.dtype).expand(pos.shape[:-1] + (2,))
     return torch.cat([pos, vel, rp], dim=-1)
 
 

@@ -116,16 +116,17 @@ def building_collision(pos: torch.Tensor, radius: torch.Tensor,
                        p: EnvParams) -> torch.Tensor:
     """Per-agent cylinder collision under the preprocess gates: h > z - 2
     and 2D distance <= 5 (in range), z <= h and 2D distance <= r + br (hit).
-    pos [..., N, 3], radius [..., N] or [N], buildings [B, 4] -> [..., N]."""
-    bx, by, bh, br = (buildings[:, 0], buildings[:, 1],
-                      buildings[:, 2], buildings[:, 3])
+    pos [..., N, 3], radius [..., N] or [N], buildings [B, 4] (or a lane
+    world's [E, B, 4], mask [E, B]) -> [..., N]."""
+    b = buildings[..., None, :, :]                       # [(E,) 1, B, 4]
+    bx, by, bh, br = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
     dx = pos[..., :, None, 0] - bx
     dy = pos[..., :, None, 1] - by
     d2 = torch.sqrt(dx * dx + dy * dy)                   # [..., N, B]
     z = pos[..., :, None, 2]
     in_range = (bh > z - p.building_z_slack) & (d2 <= p.building_range)
     hit = (z <= bh) & (d2 <= radius[..., :, None] + br)
-    return torch.any(building_mask & in_range & hit, dim=-1)
+    return torch.any(building_mask[..., None, :] & in_range & hit, dim=-1)
 
 
 class VORewardInfo(NamedTuple):

@@ -3,6 +3,10 @@
 The world is a NamedTuple of tensors with a leading agent axis [N]; the
 fleet state carries [E, N, ...] (or [N, ...] for one env) and broadcasts
 against the world, so lanes and agents are tensor axes throughout.
+
+A lane world (worlds/multi.py) puts the state's lane axis in front of every
+leaf (waypoints [E, N, W, 3], buildings [E, B, 4], map_size [E, 3], ...),
+so that lane e steps its own world; the env functions take either kind.
 """
 
 from __future__ import annotations
@@ -16,12 +20,12 @@ from rvo3d_tpu_torch.env.obstacles import SphereSpec, make_sphere_spec
 
 
 def _wp_select(wps: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """wps[..., idx, :] for wps [N, W, 3] and idx [..., N] -> [..., N, 3].
+    """wps[..., idx, :] for wps [N, W, 3] (or a lane world's [E, N, W, 3])
+    and idx [..., N] -> [..., N, 3].
 
     The JAX package writes this as a one-hot contraction to dodge a TPU
     gather bug; a gather gives the same values exactly."""
-    lead = idx.shape[:-1]
-    w = wps.expand(lead + wps.shape)
+    w = wps.expand(idx.shape + wps.shape[-2:])
     g = idx.long()[..., None, None].expand(idx.shape + (1, wps.shape[-1]))
     return torch.gather(w, -2, g).squeeze(-2)
 
@@ -39,10 +43,16 @@ class WorldSpec(NamedTuple):
     priority: torch.Tensor       # [N]
     vel_max: torch.Tensor        # [N, 3]
     spheres: Optional[SphereSpec] = None
+    # a lane world has an [E] axis in front of every leaf
 
     @property
     def num_drones(self) -> int:
-        return self.waypoints.shape[0]
+        return self.waypoints.shape[-3]
+
+    @property
+    def lanes(self) -> Optional[int]:
+        """E for a lane world, None for one world."""
+        return self.waypoints.shape[0] if self.waypoints.dim() == 4 else None
 
     @property
     def sphere_count(self) -> int:
@@ -58,7 +68,7 @@ class WorldSpec(NamedTuple):
 
     @property
     def starts(self) -> torch.Tensor:
-        return self.waypoints[:, 0, :]
+        return self.waypoints[..., 0, :]
 
     @property
     def destinations(self) -> torch.Tensor:
@@ -103,20 +113,21 @@ class StepOutput(NamedTuple):
 
 
 def init_drone_state(world: WorldSpec, lead=(), dtype=None) -> DroneState:
-    """Fleet state after reset, broadcast to leading shape `lead` (e.g. (E,))."""
+    """Fleet state after reset, broadcast to leading shape `lead` (e.g. (E,);
+    a lane world's E)."""
     dtype = dtype or world.dtype
     dev = world.device
     n = world.num_drones
     shape = tuple(lead) + (n,)
-    starts = world.waypoints[:, 0, :].to(dtype).expand(shape + (3,)).clone()
+    starts = world.starts.to(dtype).expand(shape + (3,)).clone()
     z = torch.zeros(shape, dtype=dtype, device=dev)
     if world.sphere_count:
-        sp = world.spheres.init[:, 0:3].to(dtype)
-        sv = world.spheres.init[:, 3:6].to(dtype)
+        sp = world.spheres.init[..., 0:3].to(dtype)
+        sv = world.spheres.init[..., 3:6].to(dtype)
     else:
         sp = torch.zeros((0, 3), dtype=dtype, device=dev)
         sv = torch.zeros((0, 3), dtype=dtype, device=dev)
-    sshape = tuple(lead) + sp.shape
+    sshape = tuple(lead) + sp.shape[-2:]
     f = torch.zeros(shape, dtype=torch.bool, device=dev)
     return DroneState(
         pos=starts,

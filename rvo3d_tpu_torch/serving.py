@@ -8,6 +8,7 @@ the evaluator's std_factor from an explicit torch.Generator.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -22,6 +23,7 @@ class PolicyServer:
     """act(obs_self [B,12], obs_nbr [B,nm,9], obs_mask [B,nm]) -> [B, 3]
     act_flat(obs [B, 12 + 9*k]) -> [B, 3] (the reference's flat layout)
     from_checkpoint(path)      — the port's own checkpoint (see save)
+    from_torch(run_dir, epoch) — a training run's <ckpt>/<epoch>/state.pt
     from_numpy_params(params)  — the JAX package's params as numpy arrays
     """
 
@@ -49,6 +51,26 @@ class PolicyServer:
         ac = ActorCritic(ModelConfig(**model), device=device)
         ac.load_state_dict(ckpt["state_dict"])
         return cls(ac, nm=int(ckpt["nm"]), **kw)
+
+    @classmethod
+    def from_torch(cls, run_dir: str, epoch: Optional[int] = None, *,
+                   device="cuda", **kw) -> "PolicyServer":
+        """The policy of a training run: `run_dir` holds ckpt/ (or is the
+        ckpt directory); `epoch` None loads the latest. The run's Config
+        is `server.config`, the loaded epoch `server.epoch`."""
+        from rvo3d_tpu_torch.algo.ppo import PPOState
+        from rvo3d_tpu_torch.utils.checkpoint import load_config, restore_checkpoint
+
+        ckpt = run_dir if os.path.basename(os.path.normpath(run_dir)) == "ckpt" \
+            else os.path.join(run_dir, "ckpt")
+        cfg = load_config(ckpt)
+        ac = ActorCritic(cfg.model, device=device)
+        _, epoch = restore_checkpoint(ckpt, PPOState(ac, None, None), epoch,
+                                      params_only=True)
+        server = cls(ac, nm=cfg.env.neighbor_num, std_factor=cfg.train.std_factor_eval,
+                     **kw)
+        server.config, server.epoch = cfg, epoch
+        return server
 
     def save(self, path: str) -> None:
         torch.save({"model": dataclasses.asdict(self.ac.cfg), "nm": self.nm,

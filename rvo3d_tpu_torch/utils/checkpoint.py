@@ -5,6 +5,8 @@ rvo3d_tpu/utils/checkpoint.py, which writes Orbax):
                                   state_dict), "pi_opt", "vf_opt" (the two
                                   Adams' state_dicts)}
   <directory>/config.json      : the run's Config, loadable by both packages
+  <run_dir>/best_checkpoint.json : the persisted epoch with the best worst-
+                                   population success (BestCheckpoint)
 
 Every saved epoch is kept. Resume restores the parameters and both
 optimizer states, or the parameters alone (`params_only`, for a run whose
@@ -83,3 +85,27 @@ def restore_checkpoint(directory: str, ppo_state: PPOState,
 def load_config(directory: str) -> Config:
     with open(os.path.join(directory, "config.json")) as f:
         return from_dict(json.load(f))
+
+
+class BestCheckpoint:
+    """Tracks which persisted epoch scored best and rewrites
+    <run_dir>/best_checkpoint.json after every evaluation, in the JAX
+    CLI's format. A multi-population checkpoint is as good as its worst
+    population; only persisted epochs may become best (an eval-only epoch
+    has no checkpoint to restore)."""
+
+    FILE = "best_checkpoint.json"
+
+    def __init__(self, run_dir: str):
+        self.run_dir = run_dir
+        self.epoch: Optional[int] = None
+        self.success = -1.0
+
+    def update(self, epoch: int, min_success: float, saved: bool = True) -> None:
+        if saved and min_success > self.success:
+            self.epoch, self.success = epoch, min_success
+        record = {"epoch": self.epoch, "min_success_rate": self.success,
+                  "hint": f"cli eval --checkpoint {self.run_dir} "
+                          f"--ckpt_epoch {self.epoch}"}
+        with open(os.path.join(self.run_dir, self.FILE), "w") as f:
+            json.dump(record, f, indent=1)

@@ -8,7 +8,10 @@ through the kernel against the same policy on the CPU; a short evaluate
 that must launch the kernel; and the training path's gradients (kernel
 forward, plain backward) of masked_bigru_scan and of the ActorCritic pi-
 and v-losses at B = 2048 (a rollout step of 128 lanes x 16 drones) and
-16384 (the PPO minibatch) against the same on the CPU.
+16384 (the PPO minibatch) against the same on the CPU; the RVO expert on
+a world32_mix lane world (float64: the same candidate indices as on the
+CPU; float32: at most 1 % flips), and a BC fit step at B = 4096 (the
+kernel forward under autograd) against the same step on the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
@@ -241,3 +244,78 @@ def test_actor_critic_loss_grads_match_cpu(cuda, b, monkeypatch):
             yardstick = (g_plain[n] - r).abs().max()
             assert err <= max(1e-3 * r.abs().max(), 2 * yardstick) + 1e-12, (
                 n, float(err), float(yardstick), float(r.abs().max()))
+
+
+def _lane_world_states(device, dtype, lanes=8, steps=12):
+    from rvo3d_tpu_torch.env import geometry as geo
+    from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
+    from rvo3d_tpu_torch.worlds import load_world
+    from rvo3d_tpu_torch.worlds.multi import MultiWorldEnv, reverse_routes
+
+    wd = load_world("world32_mix")
+    spec = wd.spec(dtype=dtype, device=device)
+    p = EnvParams(num_drones=wd.drone_num)
+    env = MultiWorldEnv([spec, reverse_routes(spec)], torch.arange(lanes) % 2, p)
+    st, _ = env.reset_batch()
+    g = torch.Generator().manual_seed(0)
+    for _ in range(steps):
+        noise = 0.3 * torch.randn(st.pos.shape, generator=g, dtype=dtype).to(device)
+        st, out = env.step_batch(st, geo.rnd(waypoint_controller(st, env.lane_worlds)
+                                             + noise, 2))
+        st = env.reset_where_batch(st, out.done | out.finish)
+    return env.lane_worlds, st, p
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rvo_expert_on_card_matches_cpu(cuda, dtype):
+    from rvo3d_tpu_torch.env.rvo_policy import rvo_choice
+
+    (wc, sc, p), (wg, sg, _) = (_lane_world_states(d, dtype) for d in ("cpu", cuda))
+    flips = total = 0
+    for margin, slow in ((None, False), (0.3, True), (0.8, False)):
+        ref, _ = rvo_choice(wc, sc, p, margin=margin, slowdown=slow)
+        got, _ = rvo_choice(wg, sg, p, margin=margin, slowdown=slow)
+        flips += int((got.cpu() != ref).sum())
+        total += ref.numel()
+    if dtype == torch.float64:
+        assert flips == 0
+    else:
+        assert flips <= 0.01 * total, (flips, total)
+
+
+def test_bc_fit_step_on_card_matches_cpu(cuda):
+    """The BC loss (conflict weight 30) and its gradients at B = 4096 with
+    the kernel forward against the CPU's plain path (1e-3 of each tensor's
+    largest gradient), and a 3-step fit that launches the kernel once a
+    step."""
+    from rvo3d_tpu_torch.algo import bc
+
+    g = torch.Generator().manual_seed(0)
+    b, nm = 4096, 10
+    k = torch.randint(0, 3, (b, 1), generator=g)
+    mask = torch.arange(nm)[None, :] >= nm - k
+    data = (torch.randn(b, 12, generator=g),
+            torch.randn(b, nm, 9, generator=g) * mask[..., None], mask,
+            torch.rand(b, 3, generator=g) * 2 - 1)
+    idx = torch.randperm(b, generator=g)
+    out = []
+    for dev in ("cpu", cuda):
+        ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(1),
+                         device=dev)
+        before = mg.launches
+        loss = bc.bc_loss(ac, tuple(x.to(dev) for x in data), idx.to(dev), 30.0)
+        loss.backward()
+        out.append((float(loss), mg.launches - before,
+                    {n: q.grad.cpu() for n, q in ac.named_parameters()
+                     if q.grad is not None}))
+    (loss_c, n_c, g_c), (loss_g, n_g, g_g) = out
+    assert n_c == 0 and n_g == 1
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    assert g_g.keys() == g_c.keys()
+    for name, ref in g_c.items():
+        assert (g_g[name] - ref).abs().max() <= 1e-3 * ref.abs().max(), name
+    ac = ActorCritic(ModelConfig(), device=cuda)
+    before = mg.launches
+    loss = bc.fit(ac, tuple(x.to(cuda) for x in data), b, 3, b, 1e-3, None,
+                  indices=lambda s: idx)
+    assert mg.launches - before == 3 and np.isfinite(loss)

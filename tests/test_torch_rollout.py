@@ -24,8 +24,9 @@ package's rollout_epoch, on gen_demo with a small policy (H = 16, heads
     is passed (terminal reads ep_len before the collision reset). Positions, rewards and values agree to 1e-12
     at every step, and the done, finish and cut flags and the
     EpisodeStats counts exactly.
-  - lane_worlds raises, naming ROADMAP A13; noise mode is reproducible
-    from the generator and moves the drones off the noise-free path.
+  - a lane world of the rollout's own world gives the same rollout;
+    noise mode is reproducible from the generator and moves the drones
+    off the noise-free path.
 """
 
 import dataclasses
@@ -269,17 +270,28 @@ def test_f64_rollout_lifecycle_is_exact(mode, max_ep_len, monkeypatch):
     assert all(v > 0 for v in events.values()), events
 
 
-def test_lane_worlds_are_not_ported_yet():
+def test_lane_world_of_one_world_equals_single_world_rollout():
+    """A lane world whose lanes all hold the rollout's world gives the
+    single-world rollout exactly (tests/test_torch_multi.py holds lane
+    worlds of different worlds against JAX)."""
+    from rvo3d_tpu_torch.worlds.multi import stack_worlds, worlds_for_lanes
+
     wd = load_world("gen_demo")
     spec = wd.spec(device="cpu")
     p = EnvParams(num_drones=wd.drone_num)
-    with pytest.raises(NotImplementedError, match="A13"):
-        init_rollout_carry(spec, p, 2, torch.Generator(), lane_worlds=spec)
-    carry = init_rollout_carry(spec, p, 2, torch.Generator())
+    lanes = worlds_for_lanes(stack_worlds([spec]), [0, 0])
+    cfg = TrainConfig(steps_per_epoch=6, action_mode="direct")
     ac = ActorCritic(ModelConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        rollout_epoch(ac, spec, p, TrainConfig(steps_per_epoch=2), carry,
-                      lane_worlds=spec)
+    runs = []
+    for lw in (None, lanes):
+        carry = init_rollout_carry(spec, p, 2, torch.Generator().manual_seed(0),
+                                   lane_worlds=lw)
+        runs.append(rollout_epoch(ac, spec, p, cfg, carry, lane_worlds=lw))
+    (c1, b1), (c2, b2) = runs
+    for a, b in zip(b1, b2):
+        assert torch.equal(a, b)
+    for a, b in zip(c1.env_state, c2.env_state):
+        assert torch.equal(a, b)
 
 
 def test_noise_mode_is_reproducible_and_moves_the_drones():
