@@ -40,18 +40,45 @@ then PPO, 64 lanes x 32 drones, biGRU-256, batch 4096, minibatch 16384;
 one `bc_round` line per fit, one `ppo_epoch` line per epoch, the kernel
 held to its plain version at the rows the path gave it, and the gate:
 det success >= 0.8 on both populations at the best persisted epoch).
-Each phase prints one JSON line with its wall-clock seconds; a failed
-phase exits non-zero. The last line is {"ok": true, "device": {...}}.
+Then the LSTM and bfloat16 policies, data-parallel lanes, the curriculum,
+reference-policy import and the profiler: `lstm_policy` (an LSTM-256 policy
+with (256, 256) heads: its forward at B = 4096 on the card against the CPU,
+one Trainer epoch at w16_r4's width with T cut to 64 and 5 pi / 5 v
+iterations, evaluate at 256 lanes; it launches no masked GRU), `bf16_serve`
+(the w16_r4 product with compute_dtype bfloat16: act p50 at B = 1, 64 and
+4096 beside the float32 serve, its forward within 0.05 / 0.2 of float32's,
+det success over 256 episodes), `data_parallel_epoch` (this script started
+twice more, `--dp-worker`, as two gloo ranks on this card running
+`cli train --mesh_data 2` from the product's params at 128 lanes, T = 64,
+5 pi / 5 v iterations, against the same epoch in this process: metrics at
+rtol 1e-3, final params within 1e-5, rank-0 artifacts once),
+`curriculum` (`cli train --curriculum 1.2:1,0.4:rest`, 3 epochs, 16
+lanes, T = 32, full width), `reference_import` (a reference-layout
+biGRU-256 state dict from the seed, card against CPU, then
+`cli eval --torch_checkpoint`) and `profile_rollout_step`
+(utils/profiler.trace over 5 rollout steps at w16_r4's width: the 15 CUDA
+ops with the most device time, launches per step, the masked-GRU kernel
+among them; the trace goes to chiprun_out/profile_rollout_step/).
+Each of these phases that launches the masked GRU keeps the kernel's
+inputs at its first launch with each row count and holds the kernel to its
+plain version on them (`kernel_at_path_rows`, atol 1e-4); `bf16_serve` also
+holds its bfloat16 forward on the card to the CPU's, within 1e-4 plus two
+bfloat16 steps at the output's largest value.
+Each phase prints one JSON line with its wall-clock seconds, and a `total`
+line the script's; a failed phase exits non-zero. The last line is
+{"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -112,6 +139,19 @@ RECIPE_EVAL_EPISODES = 100
 RECIPE_DAGGER = 3
 RECIPE_MIN_SUCCESS = 0.8      # det, worst population, best persisted epoch
 RECIPE_MIN_EPISODES = 64
+# The LSTM epoch and the data-parallel epoch run w16_r4's training config at
+# its width (128 lanes x 16 drones, minibatch 16384) with T and the pi / v
+# iterations cut (the run has T = 300, 20 pi and 50 v iterations)
+CUT_T, CUT_ITERS = 64, 5
+DP_RANKS = 2               # gloo ranks sharing this card, 64 lanes each
+DP_TIMEOUT_S = 300
+DP_KEYS = ("mean_step_reward", "pi_loss", "v_loss", "kl")
+DP_METRIC_TOL = {"rtol": 1e-3, "atol": 1e-3}  # tests/test_sharding.py:111-114
+DP_PARAM_TOL = 1e-5
+BF16_GATE = {"mu": 0.05, "v": 0.2}           # tests/test_models.py:173-174
+PROFILE_STEPS = 5
+REPO = os.path.dirname(os.path.abspath(__file__))
+PROFILE_DIR = os.path.join(REPO, "chiprun_out", "profile_rollout_step")
 
 
 def recipe_argv(run_dir):
@@ -202,18 +242,184 @@ def encoder_view(obs_nbr, obs_mask):
             mask.reshape(-1, nm).float().t())
 
 
+@contextlib.contextmanager
+def kernel_inputs_kept(mg, keep):
+    """While open, the masked-GRU kernel's inputs at its first launch with
+    each row count B go into keep[B]: clones, with the launch's strides, of
+    the operands the path gave the kernel (bfloat16-rounded ones included).
+    The launches themselves are unchanged."""
+    real = mg.launch
+
+    def launch(xs, mask, weights, reverse=False):
+        b = int(xs.shape[1])
+        if b not in keep:
+            keep[b] = (xs.detach().clone(), mask.detach().clone(),
+                       [tuple(w.detach().clone() for w in ws) for ws in weights],
+                       bool(reverse))
+        return real(xs, mask, weights, reverse)
+    mg.launch = launch
+    try:
+        yield keep
+    finally:
+        mg.launch = real
+
+
+def kernel_at_kept_rows(mg, keep, want=()):
+    """The kernel against its plain version (launches not counted) on each
+    kept launch's inputs, on the card; raises above ATOL, or when a row
+    count in `want` was never launched."""
+    import torch
+
+    out = {}
+    for b, (xs, ms, weights, reverse) in sorted(keep.items()):
+        xs, ms = xs.to("cuda"), ms.to("cuda")
+        weights = [tuple(w.to("cuda") for w in ws) for ws in weights]
+        l0 = mg.launches
+        with torch.no_grad():
+            if len(weights) == 2:
+                got = mg.masked_bigru_scan_cuda(xs, ms, *weights)
+                ref = mg.masked_bigru_scan_plain(xs, ms, *weights)
+            else:
+                got = mg.masked_gru_scan_cuda(xs, ms, *weights[0], reverse=reverse)
+                ref = mg.masked_gru_scan_plain(xs, ms, *weights[0], reverse=reverse)
+        mg.launches = l0
+        out[f"B{b}"] = {"max_abs_err": (got - ref).abs().max().item(),
+                        "active_slots_per_row": float(ms.sum() / ms.shape[1]),
+                        "directions": len(weights)}
+    missing = [b for b in want if b not in keep]
+    bad = {k: r["max_abs_err"] for k, r in out.items() if not r["max_abs_err"] <= ATOL}
+    if missing or bad:
+        raise AssertionError(f"kernel at the path's rows: no launch at B = {missing}, "
+                             f"max |kernel - plain| above {ATOL}: {bad}")
+    return out
+
+
+def bf16_steps(ref):
+    """The spacing of bfloat16 values at |ref| (2^-7 of the binade's
+    floor): one rounding step of a bfloat16 value of that size."""
+    import torch
+
+    _, exp = torch.frexp(ref.float())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
+
+
+def dp_argv(run_dir, start_ckpt):
+    """The data-parallel epoch's CLI flags: w16_r4's training config at its
+    width from the product's params (fresh optimizers), T and the
+    iterations cut, one epoch, saved and evaluated."""
+    return ["train", "--device", "cuda", "--world", "world16_dense", "--num_envs", "128",
+            "--steps_per_epoch", str(CUT_T), "--train_pi_iters", str(CUT_ITERS),
+            "--train_v_iters", str(CUT_ITERS), "--pi_lr", "1e-6", "--vf_lr", "5e-5",
+            "--target_kl", "0.01", "--log_std_init", "-2.3", "--batched_update",
+            "--minibatch", "16384", "--action_mode", "direct", "--seed", "7",
+            "--train_epoch", "0", "--save_freq", "1", "--eval_episodes", "16",
+            "--resume", start_ckpt, "--resume_params_only", "--quiet",
+            "--run_dir", run_dir]
+
+
+def cli_epoch_recorded(argv):
+    """cli.main(argv) with its training epoch recorded: the (gathered)
+    rollout batch the update saw, the metrics, seconds, lanes and masked-GRU
+    launches of the epoch, and the launches of the whole command."""
+    from rvo3d_tpu_torch import cli
+    from rvo3d_tpu_torch.algo import trainer as trainer_mod
+    from rvo3d_tpu_torch.ops import masked_gru as mg
+
+    real = trainer_mod.Trainer.run_epoch
+    seen = {}
+
+    def run_epoch(self):
+        def hook(name, data):
+            if name == "gae":
+                seen["batch"] = {k: v.detach().cpu() for k, v in data._asdict().items()}
+        self.phase_hook = hook
+        l0 = mg.launches
+        m = real(self)
+        seen.update(metrics=m, epoch_time_s=m["epoch_time_s"],
+                    epoch_launches=mg.launches - l0, lanes=int(self.carry.ep_len.shape[0]))
+        return m
+    trainer_mod.Trainer.run_epoch = run_epoch
+    l0 = mg.launches
+    try:
+        seen["rc"] = cli.main(argv)
+    finally:
+        trainer_mod.Trainer.run_epoch = real
+    seen["launches"] = mg.launches - l0
+    return seen
+
+
+def dp_worker(out_dir) -> int:
+    """One rank of `data_parallel_epoch` (started with the RVO3D_* variables):
+    the CLI epoch over the mesh, recorded to <out_dir>/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from rvo3d_tpu_torch.ops import masked_gru as mg
+    from rvo3d_tpu_torch.parallel import distributed_init_from_env
+
+    if not distributed_init_from_env("cuda"):
+        raise SystemExit("--dp-worker needs the RVO3D_* variables")
+    keep = {}
+    with kernel_inputs_kept(mg, keep):
+        seen = cli_epoch_recorded(dp_argv(os.path.join(out_dir, "dp"),
+                                          os.path.join(out_dir, "start", "ckpt"))
+                                  + ["--mesh_data", str(DP_RANKS)])
+    seen["kernel_inputs"] = {b: (xs.cpu(), ms.cpu(), [tuple(w.cpu() for w in ws)
+                                                      for ws in weights], rev)
+                             for b, (xs, ms, weights, rev) in keep.items()}
+    seen["backend"] = dist.get_backend()
+    torch.save(seen, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0 if seen["rc"] == 0 else 1
+
+
+def reference_state_dict(seed, hidden=256, heads=(256, 256)):
+    """A biGRU policy's state dict in the reference's naming and layouts
+    (nn.GRU [3H, in], nn.Linear [out, in]; torch's default init bounds),
+    drawn from `seed`."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def u(fan, *shape):
+        return (2 * torch.rand(shape, generator=g) - 1) * fan ** -0.5
+
+    rnn, sd = "pi.rnn_reader.rnn_net", {}
+    for sfx in ("", "_reverse"):
+        sd[f"{rnn}.weight_ih_l0{sfx}"] = u(hidden, 3 * hidden, 9)
+        sd[f"{rnn}.weight_hh_l0{sfx}"] = u(hidden, 3 * hidden, hidden)
+        sd[f"{rnn}.bias_ih_l0{sfx}"] = u(hidden, 3 * hidden)
+        sd[f"{rnn}.bias_hh_l0{sfx}"] = u(hidden, 3 * hidden)
+    sd["pi.rnn_reader.ln.weight"] = torch.ones(12 + hidden)
+    sd["pi.rnn_reader.ln.bias"] = torch.zeros(12 + hidden)
+    for prefix, out in (("pi.net_out", 3), ("v.v_net", 1)):
+        dims = [12 + hidden, *heads, out]
+        for idx, (a, b) in zip((0, 2, 4), zip(dims, dims[1:])):
+            sd[f"{prefix}.{idx}.weight"] = u(a, b, a)
+            sd[f"{prefix}.{idx}.bias"] = u(a, b)
+    sd["pi.log_std"] = torch.full((3,), -1.0)
+    return sd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-kernel", help="an older one-block masked_gru.cu "
                     "(PR-4 interface) to time in turns with this kernel")
+    ap.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
     import numpy as np
 
     from rvo3d_tpu_torch.algo import ppo
@@ -229,8 +435,6 @@ def main(argv=None) -> int:
     from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
     from rvo3d_tpu_torch.worlds import load_world
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -464,7 +668,9 @@ def main(argv=None) -> int:
     # random policy leaves the drones still, so the env is flown by the
     # waypoint controller with noise, and every row that saw a neighbour in
     # 30 steps is kept ----
-    def encoder_check():
+    def flown_observations():
+        """B = 4096 env observations: every row that saw a neighbour in 30
+        steps of the waypoint controller with noise, then the last step's."""
         env = DroneEnv(world, p, num_envs=LANES)
         g = torch.Generator(device=dev).manual_seed(SEED)
         state, out = env.reset()
@@ -477,7 +683,10 @@ def main(argv=None) -> int:
             rows.append((out.obs_self[seen], out.obs_nbr[seen], out.obs_mask[seen]))
         flat = (out.obs_self.flatten(0, 1), out.obs_nbr.flatten(0, 1),
                 out.obs_mask.flatten(0, 1))
-        obs = [torch.cat([r[i] for r in rows] + [flat[i]])[:b_main] for i in range(3)]
+        return [torch.cat([r[i] for r in rows] + [flat[i]])[:b_main] for i in range(3)]
+
+    def encoder_check():
+        obs = flown_observations()
         with torch.no_grad():
             ac_cpu = ActorCritic(cfg, device="cpu")
             ac_cpu.load_state_dict(ac.state_dict())
@@ -1088,8 +1297,408 @@ def main(argv=None) -> int:
             raise AssertionError(f"{problems}: {summary}")
         return summary
     run_phase("bc_ppo_recipe", bc_ppo_recipe)
+
+    # ---- the LSTM and bfloat16 policies, data-parallel lanes, the
+    # curriculum, reference-policy import, the profiler ----
+    import tempfile
+
+    from rvo3d_tpu_torch import cli
+    from rvo3d_tpu_torch.utils.torch_import import load_reference_policy
+
+    def lstm_policy():
+        """LSTM-256 with (256, 256) heads: the forward at B = 4096 on the card
+        against the CPU, one Trainer epoch at w16_r4's width (T and the
+        iterations cut), evaluate at 256 lanes. No masked-GRU launch."""
+        cfg_l = dataclasses.replace(
+            run_cfg, model=dataclasses.replace(run_cfg.model, rnn_mode="LSTM"),
+            train=dataclasses.replace(run_cfg.train, steps_per_epoch=CUT_T,
+                                      train_pi_iters=CUT_ITERS, train_v_iters=CUT_ITERS))
+        mg.launches = 0
+        trainer = Trainer(cfg_l, run_world, device=dev)
+        ac_l = trainer.ac
+        ac_cpu = ActorCritic(cfg_l.model, device="cpu")
+        ac_cpu.load_state_dict(ac_l.state_dict())
+        obs = flown_observations()
+        with torch.no_grad():
+            (mu, _, v), (mu_c, _, v_c) = ac_l(*obs), ac_cpu(*[o.cpu() for o in obs])
+        err = {"mu": (mu.cpu() - mu_c).abs().max().item(),
+               "v": (v.cpu() - v_c).abs().max().item()}
+        torch.cuda.reset_peak_memory_stats()
+        m = trainer.run_epoch()
+        peak = torch.cuda.max_memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        with torch.no_grad():
+            step_ms = cuda_ms(lambda: ac_l.step(*trainer.carry.obs, 1.0, gen), 20)
+        t0 = time.perf_counter()
+        ev = evaluate(ac_l, world, p, generator=torch.Generator(device=dev).manual_seed(SEED),
+                      num_episodes=LANES, num_lanes=LANES, max_ep_len=150, max_chunks=2,
+                      action_mode="direct")
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches_by_phase["lstm_policy"] = mg.launches
+        if not (err["mu"] <= ATOL and err["v"] <= ATOL):
+            raise AssertionError(f"LSTM card vs CPU: {err} > {ATOL}")
+        if not metrics_finite(m) or not np.isfinite(ev["success_rate"]):
+            raise AssertionError(f"non-finite LSTM metrics {m} {ev}")
+        if mg.launches:
+            raise AssertionError(f"the LSTM path launched the masked GRU {mg.launches} times")
+        tr = cfg_l.train
+        return {"model": "LSTM-256, heads (256, 256)", "forward_B": int(mu.shape[0]),
+                "max_abs_err": err, "atol": ATOL, "lanes": tr.num_envs,
+                "drones": cfg_l.env.num_drones, "minibatch": tr.minibatch,
+                "cuts": {"steps_per_epoch": [run_cfg.train.steps_per_epoch, CUT_T],
+                         "train_pi_iters": [run_cfg.train.train_pi_iters, CUT_ITERS],
+                         "train_v_iters": [run_cfg.train.train_v_iters, CUT_ITERS]},
+                "epoch_time_s": m["epoch_time_s"], "steps_per_sec": m["steps_per_sec"],
+                "pi_loss": m["pi_loss"], "v_loss": m["v_loss"], "kl": m["kl"],
+                "step_ms_B2048": step_ms, "max_memory_allocated": peak,
+                "evaluate": {"lanes": LANES, "seconds": eval_s, **ev},
+                "gru_launches": mg.launches, "card": smi}
+    run_phase("lstm_policy", lstm_policy)
+
+    def bf16_serve():
+        """The w16_r4 product with compute_dtype bfloat16 beside its float32
+        serve: act p50, the forward's distance, det success (not gated)."""
+        f32 = PolicyServer.from_checkpoint(PRODUCT_PARAMS, device=dev)
+        cfg16 = dataclasses.replace(f32.ac.cfg, compute_dtype="bfloat16")
+        ac16 = ActorCritic(cfg16, device=dev)
+        ac16.load_state_dict(product["state_dict"])
+        s16 = PolicyServer(ac16, nm=f32.nm)
+        ac16_cpu = ActorCritic(cfg16, device="cpu")
+        ac16_cpu.load_state_dict(product["state_dict"])
+        keep = {"f32": {}, "bf16": {}, "det_eval_bf16": {}}
+        mg.launches = 0
+        obs = flown_observations()
+        with torch.no_grad():
+            with kernel_inputs_kept(mg, keep["f32"]):
+                mu32, _, v32 = f32.ac(*obs)
+            with kernel_inputs_kept(mg, keep["bf16"]):
+                mu16, _, v16 = ac16(*obs)
+        with torch.no_grad():
+            mu16_c, _, v16_c = ac16_cpu(*[o.cpu() for o in obs])
+        diff = {"mu": (mu16 - mu32).abs().max().item(), "v": (v16 - v32).abs().max().item()}
+        # the card's bfloat16 forward against the CPU's (the plain scan on
+        # the same bfloat16-rounded operands): the bfloat16 layers round on
+        # both devices after float32 sums taken in different orders, so a
+        # value may land one bfloat16 step away, and the step carries on,
+        # absolute, to the outputs; the gate is 1e-4 plus two bfloat16 steps
+        # at the output's largest |value| (an output near 0 can take a whole
+        # step of a larger intermediate)
+        card_cpu = {}
+        for name, got, ref in (("mu", mu16.cpu(), mu16_c), ("v", v16.cpu(), v16_c)):
+            d = (got - ref).abs()
+            step = bf16_steps(ref.abs().max()).item()
+            card_cpu[name] = {"max_abs": d.max().item(), "bf16_step_at_max": step,
+                              "share_above_1e-4": (d > ATOL).float().mean().item()}
+            if not d.max().item() <= ATOL + 2 * step:
+                raise AssertionError(f"bf16 card vs CPU {name}: {card_cpu[name]}")
+        rng = np.random.default_rng(SEED)
+        lat = {}
+        for b in (1, 64, 4096):
+            o = (rng.normal(size=(b, 12)).astype(np.float32),
+                 rng.normal(size=(b, 10, 9)).astype(np.float32), rng.random((b, 10)) > 0.6)
+            for name, srv in (("f32", f32), ("bf16", s16)):
+                with kernel_inputs_kept(mg, keep[name]):    # a first call, kept
+                    srv.act(*o)
+            lat[f"b{b}"] = {name: p50_ms(lambda: srv.act(*o))
+                            for name, srv in (("f32", f32), ("bf16", s16),
+                                              ("f32_again", f32), ("bf16_again", s16))}
+        serve_launches = mg.launches
+        t0 = time.perf_counter()
+        with kernel_inputs_kept(mg, keep["det_eval_bf16"]):
+            ev = evaluate(ac16, run_world, run_cfg.env,
+                          generator=torch.Generator(device=dev).manual_seed(SEED),
+                          num_episodes=PRODUCT_EPISODES, num_lanes=128, chunk_len=40,
+                          max_chunks=8, std_factor=run_cfg.train.std_factor_eval,
+                          action_mode=run_cfg.train.action_mode)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches_by_phase["bf16_serve"] = mg.launches
+        # the kernel at this path's rows: the first launch at each B of each
+        # policy's forward and serve, and of the bfloat16 evaluation
+        at_rows = {k: kernel_at_kept_rows(mg, kept, want=(128 * 16,) if k == "det_eval_bf16"
+                                          else (1, 64, 4096))
+                   for k, kept in keep.items()}
+        if not (diff["mu"] <= BF16_GATE["mu"] and diff["v"] <= BF16_GATE["v"]):
+            raise AssertionError(f"bf16 vs f32 forward {diff}; the gate is {BF16_GATE}")
+        if mg.launches == 0:
+            raise AssertionError("bf16_serve never launched the masked GRU kernel")
+        return {"forward_B": int(mu32.shape[0]), "max_abs_diff_vs_f32": diff,
+                "gate": BF16_GATE, "bf16_card_vs_cpu": card_cpu,
+                "bf16_card_vs_cpu_gate": "max |d| <= 1e-4 + 2 bfloat16 steps at max |cpu|",
+                "kernel_at_path_rows": at_rows, "atol": ATOL, "act_p50_ms": lat,
+                "det_eval": {"seconds": eval_s, **ev},
+                "gru_launches": {"forward_and_serve": serve_launches,
+                                 "det_eval": mg.launches - serve_launches},
+                "card": smi}
+    run_phase("bf16_serve", bf16_serve)
+
+    def data_parallel_epoch():
+        """One epoch through `cli train --mesh_data 2` in two gloo ranks on
+        this card (64 lanes each) against the same epoch in one process."""
+        from rvo3d_tpu_torch.algo.ppo import PPOState, make_optimizers
+        from rvo3d_tpu_torch.utils.checkpoint import save_checkpoint
+
+        with tempfile.TemporaryDirectory() as tmp:
+            start = os.path.join(tmp, "start", "ckpt")
+            ac_p = ActorCritic(run_cfg.model, device=dev)
+            ac_p.load_state_dict(product["state_dict"])
+            save_checkpoint(start, 0, PPOState(ac_p, *make_optimizers(run_cfg.train, ac_p)),
+                            run_cfg)
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = sk.getsockname()[1]
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker", tmp],
+                env=dict(os.environ, RVO3D_COORDINATOR=f"127.0.0.1:{port}",
+                         RVO3D_NUM_PROCESSES=str(DP_RANKS), RVO3D_PROCESS_ID=str(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(DP_RANKS)]
+            logs = []
+            try:
+                for proc in procs:
+                    logs.append(proc.communicate(timeout=DP_TIMEOUT_S)[0])
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            for r, (proc, log) in enumerate(zip(procs, logs)):
+                if proc.returncode != 0:
+                    raise AssertionError(f"rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                     for r in range(DP_RANKS)]
+            mg.launches = 0
+            keep_one = {}
+            with kernel_inputs_kept(mg, keep_one):
+                one = cli_epoch_recorded(dp_argv(os.path.join(tmp, "one"), start))
+            one_launches = mg.launches
+            run_dp, run_one = os.path.join(tmp, "dp"), os.path.join(tmp, "one")
+            params = [torch.load(os.path.join(r, "ckpt", "0", "state.pt"),
+                                 weights_only=False)["params"] for r in (run_dp, run_one)]
+            with open(os.path.join(run_dp, "train.jsonl")) as f:
+                jsonl = [ln for ln in f if ln.strip()]
+            with open(os.path.join(run_dp, "results.txt")) as f:
+                results = f.read().splitlines()
+            ckpts = sorted(os.listdir(os.path.join(run_dp, "ckpt")))
+        problems = []
+        rollout = {}
+        for r, got in enumerate(ranks):
+            worst = {}
+            for k, ref in one["batch"].items():
+                a = got["batch"][k]
+                if ref.is_floating_point():
+                    worst[k] = (a.double() - ref.double()).abs().max().item()
+                elif not torch.equal(a, ref):
+                    problems.append(f"rank {r}: rollout {k} differs")
+            rollout[f"rank{r}"] = worst
+            for k in ("mean_step_reward", "pi_loss", "v_loss", "kl"):
+                if not np.allclose(got["metrics"][k], one["metrics"][k], **DP_METRIC_TOL):
+                    problems.append(f"rank {r}: {k} {got['metrics'][k]} vs "
+                                    f"{one['metrics'][k]}")
+        # where a rank's rollout differs: the policy's forward on one rank's
+        # rows alone against the same rows inside the full batch (the first
+        # step's observations, the product's weights)
+        obs0 = [one["batch"][k][0].to(dev) for k in ("obs_self", "obs_nbr", "obs_mask")]
+        half = obs0[0].shape[0] // DP_RANKS
+        with torch.no_grad():
+            full = ac_p(*obs0)
+            part = ac_p(*[o[:half] for o in obs0])
+        split = {name: (a[:half] - b).abs().max().item()
+                 for name, a, b in (("mu", full[0], part[0]), ("v", full[2], part[2]))}
+        param_err = max((params[0][k].double() - v.double()).abs().max().item()
+                        for k, v in params[1].items())
+        if param_err > DP_PARAM_TOL:
+            problems.append(f"final params differ by {param_err} > {DP_PARAM_TOL}")
+        if len(jsonl) != 1 or len(results) != 1 or ckpts != ["0", "config.json"]:
+            problems.append(f"rank-0 artifacts: {len(jsonl)} train.jsonl lines, "
+                            f"{len(results)} results lines, ckpt {ckpts}")
+        if sum("run dir:" in log for log in logs) != 1:
+            problems.append("'run dir:' printed by other than one rank")
+        launches = {"one_process": one_launches,
+                    **{f"rank{r}": got["launches"] for r, got in enumerate(ranks)},
+                    "epoch_only": {"one_process": one["epoch_launches"],
+                                   **{f"rank{r}": g["epoch_launches"]
+                                      for r, g in enumerate(ranks)}}}
+        launches_by_phase["data_parallel_epoch"] = one_launches + sum(
+            g["launches"] for g in ranks)
+        # the kernel at the rows each process gave it: a rank's rollout
+        # rows (64 lanes x 16 drones), the update's and the evaluation's
+        lanes_rows = run_cfg.train.num_envs * run_cfg.env.num_drones
+        at_rows = {"one_process": kernel_at_kept_rows(mg, keep_one, want=(lanes_rows,)),
+                   **{f"rank{r}": kernel_at_kept_rows(mg, g["kernel_inputs"],
+                                                      want=(lanes_rows // DP_RANKS,))
+                      for r, g in enumerate(ranks)}}
+        summary = {"ranks": DP_RANKS, "backend": ranks[0]["backend"],
+                   "lanes": run_cfg.train.num_envs, "lanes_per_rank": ranks[0]["lanes"],
+                   "drones": run_cfg.env.num_drones,
+                   "cuts": {"steps_per_epoch": [run_cfg.train.steps_per_epoch, CUT_T],
+                            "train_pi_iters": [run_cfg.train.train_pi_iters, CUT_ITERS],
+                            "train_v_iters": [run_cfg.train.train_v_iters, CUT_ITERS]},
+                   "epoch_time_s": {"one_process": one["epoch_time_s"],
+                                    **{f"rank{r}": g["epoch_time_s"]
+                                       for r, g in enumerate(ranks)}},
+                   "rollout_max_abs_diff": rollout,
+                   "policy_rows_alone_vs_in_full_batch": split,
+                   "final_params_max_abs_diff": param_err,
+                   "param_tol": DP_PARAM_TOL, "metric_tol": DP_METRIC_TOL,
+                   "metrics": {"one_process": {k: one["metrics"][k] for k in DP_KEYS},
+                               **{f"rank{r}": {k: g["metrics"][k] for k in DP_KEYS}
+                                  for r, g in enumerate(ranks)}},
+                   "gru_launches": launches, "kernel_at_path_rows": at_rows, "atol": ATOL,
+                   "results": results, "card": smi}
+        if problems:
+            raise AssertionError(f"{problems}: {summary}")
+        return summary
+    run_phase("data_parallel_epoch", data_parallel_epoch)
+
+    def curriculum():
+        """cli train --curriculum 1.2:1,0.4:rest over 3 epochs at full width."""
+        import re
+
+        num = r"-?[\d.]+(?:e-?\d+)?"
+        line_re = re.compile(rf"^(?:epoch (\d+) \(stage thr=({num})\):|stage thr=({num}) "
+                             rf"done \(epoch (\d+)\): eval@({num})) success {num}% "
+                             rf"EpLen {num}±{num}$")
+        with tempfile.TemporaryDirectory() as tmp:
+            run = os.path.join(tmp, "run")
+            argv = ["train", "--device", "cuda", "--world", WORLD, "--num_envs", "16",
+                    "--steps_per_epoch", "32", "--train_epoch", "3",
+                    "--curriculum", "1.2:1,0.4:rest", "--batched_update",
+                    "--action_mode", "direct", "--eval_episodes", "16", "--quiet",
+                    "--run_dir", run]
+            mg.launches = 0
+            keep = {}
+            t0 = time.perf_counter()
+            with kernel_inputs_kept(mg, keep):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(run, "train.jsonl")) as f:
+                lines = [json.loads(ln) for ln in f if ln.strip()]
+            with open(os.path.join(run, "results.txt")) as f:
+                results = f.read().splitlines()
+            ckpts = sorted(d for d in os.listdir(os.path.join(run, "ckpt")) if d.isdigit())
+        launches_by_phase["curriculum"] = mg.launches
+        # the kernel at the run's rows: the rollout's (16 lanes x 16
+        # drones), the update's and the evaluations'
+        at_rows = kernel_at_kept_rows(mg, keep, want=(16 * 16,))
+        stages = [(ln["epoch"], ln["goal_threshold"]) for ln in lines]
+        parsed = [[g for g in line_re.match(r).groups() if g is not None]
+                  if line_re.match(r) else None for r in results]
+        want = [["0", "1.2"], ["1.2", "1", "0.4"], ["1.2", "1", "1.2"], ["1", "0.4"],
+                ["2", "0.4"], ["0.4", "3", "0.4"]]
+        out = {"argv": argv, "wall_s": wall, "stages": stages, "results": results,
+               "checkpoints": ckpts, "epoch_time_s": [ln["epoch_time_s"] for ln in lines],
+               "gru_launches": mg.launches, "kernel_at_path_rows": at_rows, "atol": ATOL,
+               "card": smi}
+        if (rc != 0 or stages != [(0, 1.2), (1, 0.4), (2, 0.4)] or parsed != want
+                or ckpts != ["0", "1", "2"] or mg.launches == 0):
+            raise AssertionError(f"curriculum run: {out}")
+        return out
+    run_phase("curriculum", curriculum)
+
+    def reference_import():
+        """A reference-layout biGRU-256 state dict from a seed, imported:
+        card against CPU, then `cli eval --torch_checkpoint`."""
+        import re
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "policy.pt")
+            torch.save({"model_state": reference_state_dict(SEED)}, path)
+            sd = load_reference_policy(path)
+            ac_r = ActorCritic(ModelConfig(), device=dev)
+            ac_r.load_state_dict(sd)
+            ac_cpu = ActorCritic(ModelConfig(), device="cpu")
+            ac_cpu.load_state_dict(sd)
+            obs = flown_observations()
+            mg.launches = 0
+            keep = {}
+            with torch.no_grad(), kernel_inputs_kept(mg, keep):
+                (mu, _, v), (mu_c, _, v_c) = ac_r(*obs), ac_cpu(*[o.cpu() for o in obs])
+            err = {"mu": (mu.cpu() - mu_c).abs().max().item(),
+                   "v": (v.cpu() - v_c).abs().max().item()}
+            res = os.path.join(tmp, "results.txt")
+            with kernel_inputs_kept(mg, keep):
+                rc = cli.main(["eval", "--device", "cuda", "--world", WORLD,
+                               "--torch_checkpoint", path, "--rnn_mode", "biGRU",
+                               "--episodes", "32", "--lanes", "32", "--results_file", res])
+            with open(res) as f:
+                lines = f.read().splitlines()
+        launches_by_phase["reference_import"] = mg.launches
+        # the forward's rows and the evaluation's (32 lanes x 16 drones)
+        at_rows = kernel_at_kept_rows(mg, keep, want=(b_main, 32 * 16))
+        num = r"-?[\d.]+(?:e-?\d+)?"
+        line_re = re.compile(rf"^world={WORLD} success_rate={num}% EpLen={num}±{num} "
+                             rf"speed={num}±{num} ret0=(?:{num}|inf|-inf|nan) "
+                             rf"\((\d+) episodes(?:, TRUNCATED)?\)$")
+        out = {"forward_B": int(mu.shape[0]), "max_abs_err": err, "atol": ATOL,
+               "eval_lines": lines, "gru_launches": mg.launches,
+               "kernel_at_path_rows": at_rows, "card": smi}
+        if not (err["mu"] <= ATOL and err["v"] <= ATOL):
+            raise AssertionError(f"imported policy card vs CPU: {out}")
+        if rc != 0 or len(lines) != 1 or not line_re.match(lines[0]) or mg.launches == 0:
+            raise AssertionError(f"eval --torch_checkpoint: {out}")
+        return out
+    run_phase("reference_import", reference_import)
+
+    def profile_rollout_step():
+        """torch.profiler over 5 rollout steps at w16_r4's width with the
+        product's weights: the 15 CUDA ops with the most device time."""
+        from rvo3d_tpu_torch.algo.rollout import rollout_epoch
+        from rvo3d_tpu_torch.utils.profiler import trace
+
+        cfg_p = dataclasses.replace(run_cfg, train=dataclasses.replace(
+            run_cfg.train, steps_per_epoch=PROFILE_STEPS))
+        trainer = Trainer(cfg_p, run_world, device=dev)
+        trainer.ac.load_state_dict(product["state_dict"])
+        keep = {}
+        with kernel_inputs_kept(mg, keep):   # warm-up; the profiled steps' rows
+            carry, _ = rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train,
+                                     trainer.carry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+        torch.cuda.synchronize()
+        plain_wall_ms = 1e3 * (time.perf_counter() - t0)     # the same steps unprofiled
+        mg.launches = 0
+        t0 = time.perf_counter()
+        with trace(PROFILE_DIR) as prof:
+            carry, _ = rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches_by_phase["profile_rollout_step"] = mg.launches
+        at_rows = kernel_at_kept_rows(
+            mg, keep, want=(cfg_p.train.num_envs * cfg_p.env.num_drones,))
+
+        def device_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+        ops.sort(key=device_us, reverse=True)
+        busy_ms = sum(device_us(e) for e in ops) / 1e3
+        top = [{"name": e.key, "device_ms": device_us(e) / 1e3,
+                "launches_per_step": e.count / PROFILE_STEPS} for e in ops[:15]]
+        gru = [e.key for e in ops if "masked_gru" in e.key]
+        out = {"steps": PROFILE_STEPS, "lanes": cfg_p.train.num_envs,
+               "drones": cfg_p.env.num_drones, "wall_ms_profiled": wall_ms,
+               "wall_ms_unprofiled": plain_wall_ms, "device_busy_ms": busy_ms,
+               "device_idle_share": 1.0 - busy_ms / plain_wall_ms,
+               "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
+               "cuda_ops": len(ops),
+               "launches_per_step": sum(e.count for e in ops) / PROFILE_STEPS,
+               "top15_by_device_time": top, "masked_gru_in_trace": gru,
+               "gru_launches": mg.launches, "kernel_at_path_rows": at_rows, "atol": ATOL,
+               "trace": os.path.relpath(os.path.join(PROFILE_DIR, "trace.json"), REPO),
+               "card": smi}
+        if not gru or mg.launches != PROFILE_STEPS:
+            raise AssertionError(f"the masked GRU kernel is not in the trace: {out}")
+        return out
+    run_phase("profile_rollout_step", profile_rollout_step)
     launches = sum(launches_by_phase.values())
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "card": smi})
     emit({"kernels": [{
         "name": "masked_gru", "route": "cuda",
         "source": "rvo3d_tpu_torch/csrc/masked_gru.cu",

@@ -15,7 +15,9 @@ rvo3d_tpu/algo/rollout.py; reference multi_ppo.training_loop):
 
 Lanes and agents are tensor axes; the loop over T runs on the host and
 nothing in it reads back from the device. With a lane world
-(worlds/multi.py) lane e steps its own scenario.
+(worlds/multi.py) lane e steps its own scenario. Under a data-parallel
+mesh (parallel/mesh.py) the carry holds this rank's lanes, and every draw
+is made at the global lane count and cut to them (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from rvo3d_tpu_torch.env import geometry as geo
 from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
 from rvo3d_tpu_torch.env.state import DroneState, WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.parallel.sharding import LaneDraws
 
 class EpisodeStats(NamedTuple):
     """Per-agent completed-episode aggregates, all [N]."""
@@ -132,28 +135,33 @@ def _empty_batch(carry: RolloutCarry, t_len: int, act_dim: int) -> RolloutBatch:
 @torch.no_grad()
 def rollout_epoch(ac: ActorCritic, world: WorldSpec, env_p: EnvParams,
                   cfg: TrainConfig, carry: RolloutCarry,
-                  lane_worlds=None) -> Tuple[RolloutCarry, RolloutBatch]:
-    """Collect cfg.steps_per_epoch steps across all E lanes with the
+                  lane_worlds=None, mesh=None) -> Tuple[RolloutCarry, RolloutBatch]:
+    """Collect cfg.steps_per_epoch steps across the carry's lanes with the
     policy's current parameters. lane_worlds: an optional lane world
-    (leaves [E, ...]); `world` then gives only the static shapes."""
+    (leaves [E, ...]); `world` then gives only the static shapes. mesh: a
+    parallel.Mesh whose rank holds its lanes of cfg.num_envs in the carry
+    (and in lane_worlds)."""
     if lane_worlds is not None:
         world = lane_worlds
     t_len = cfg.steps_per_epoch
     batch = _empty_batch(carry, t_len, ac.act_dim)
     gen = carry.generator
+    draws = (LaneDraws(gen, slice(None), carry.ep_len.shape[0]) if mesh is None
+             else LaneDraws(gen, mesh.lanes(cfg.num_envs), cfg.num_envs))
     env_state, (obs_self, obs_nbr, obs_mask) = carry.env_state, carry.obs
     ep_len, ep_ret, stats = carry.ep_len, carry.ep_ret, carry.stats
 
     for t in range(t_len):
-        ps = ac.step(obs_self, obs_nbr, obs_mask, 1.0, gen)
+        eps = draws.randn(obs_self.shape[:-1] + (ac.act_dim,), torch.float32,
+                          obs_self.device)
+        ps = ac.step(obs_self, obs_nbr, obs_mask, 1.0, eps=eps)
         a_inc = geo.rnd(ps.action, 2, env_p.parity_rounding)
         if cfg.action_mode == "direct":
             abs_action = a_inc
         else:
             abs_action = geo.rnd(env_p.acceler * a_inc + env_state.vel, 2,
                                  env_p.parity_rounding)
-        noise = (torch.randn(abs_action.shape, generator=gen,
-                             dtype=env_state.pos.dtype, device=abs_action.device)
+        noise = (draws.randn(abs_action.shape, env_state.pos.dtype, abs_action.device)
                  if env_p.noise else None)
         env_state, out = step(world, env_state, abs_action, env_p, noise)
 

@@ -8,6 +8,14 @@ optimizer states are updated in place, so the rollback to the last finite
 epoch keeps cloned snapshots of the parameters, both optimizer states and
 the env carry (the JAX trainer's snapshot is free: its arrays are
 immutable).
+
+Data-parallel over env lanes (`mesh`, parallel/mesh.py): each rank steps
+its block of the lanes (and of the lane world), drawing every random
+number at the global lane count; the rollout buffers are gathered and the
+episode stats reduced, and every rank runs the same PPO update on the
+full batch, so the parameters and both Adam states stay replicated and
+the epoch equals the one-process epoch. (Splitting the update's rows over
+the ranks is ROADMAP A19.)
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from rvo3d_tpu_torch.algo.rollout import (EpisodeStats, RolloutCarry,
 from rvo3d_tpu_torch.config import Config
 from rvo3d_tpu_torch.env.state import WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.parallel.sharding import gather_lanes, reduce_lanes, shard_carry
 from rvo3d_tpu_torch.utils.device import resolve_device
 
 # on_phase(name, data): called at "rollout" (data None), "gae" (the
@@ -43,12 +52,21 @@ class EpochOutput(NamedTuple):
     mean_reward: torch.Tensor
 
 
+def _reduce_stats(stats: EpisodeStats, mesh) -> EpisodeStats:
+    ops = {"ret_min": "min", "ret_max": "max"}
+    return EpisodeStats(*[reduce_lanes(x, mesh, ops.get(name, "sum"))
+                          for name, x in zip(stats._fields, stats)])
+
+
 def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
-                     pi_opt, vf_opt, lane_worlds: Optional[WorldSpec] = None):
+                     pi_opt, vf_opt, lane_worlds: Optional[WorldSpec] = None,
+                     mesh=None):
     """train_epoch(carry, generator, perm=None, offsets=None, on_phase=None)
     -> EpochOutput. `generator` (CPU) draws the agent order and minibatch
     offsets; `perm`/`offsets` inject them (see ppo_update). lane_worlds: an
-    optional lane world (worlds/multi.py) that the rollout steps."""
+    optional lane world (worlds/multi.py) that the rollout steps. mesh: a
+    parallel.Mesh; the carry and lane_worlds then hold this rank's lanes,
+    and the batch and the stats are gathered before GAE."""
     env_p, tr = cfg.env, cfg.train
     state = PPOState(ac, pi_opt, vf_opt)
 
@@ -58,7 +76,11 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
         hook = on_phase or (lambda name, data: None)
         hook("rollout", None)
         carry, batch = rollout_epoch(ac, world, env_p, tr, carry,
-                                     lane_worlds=lane_worlds)
+                                     lane_worlds=lane_worlds, mesh=mesh)
+        stats = carry.stats
+        if mesh is not None:
+            batch = type(batch)(*[gather_lanes(x, mesh, axis=1) for x in batch])
+            stats = _reduce_stats(stats, mesh)
         hook("gae", batch)
         adv, ret = gae_advantages(batch.rew, batch.val, batch.cut[:, :, None],
                                   tr.gamma, tr.lam)
@@ -68,7 +90,6 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
         hook("update", data)
         upd = ppo_update(ac, tr, pi_opt, vf_opt, data, generator, perm, offsets)
         hook("end", None)
-        stats = carry.stats
         carry = carry._replace(stats=EpisodeStats.zero(stats.count.shape[0],
                                                        stats.count.device))
         return EpochOutput(ppo_state=state, carry=carry, stats=stats,
@@ -110,10 +131,13 @@ class Trainer:
     optimizers hold the same tensors). `phase_hook` (None by default) is
     passed to every epoch as its on_phase callback. lane_worlds: an
     optional lane world (leaves [num_envs, ...], worlds/multi.py) for
-    multi-scenario training; `world` then gives only the static shapes."""
+    multi-scenario training; `world` then gives only the static shapes.
+    mesh: a parallel.Mesh to train data-parallel over the lanes; every
+    rank builds the same Trainer and keeps its lanes of the carry and of
+    lane_worlds."""
 
     def __init__(self, cfg: Config, world: WorldSpec,
-                 lane_worlds: Optional[WorldSpec] = None, device="cuda"):
+                 lane_worlds: Optional[WorldSpec] = None, device="cuda", mesh=None):
         if resolve_device(device).type != world.device.type:
             raise ValueError(f"world on {world.device}, trainer on {device}")
         if lane_worlds is not None and (lane_worlds.lanes != cfg.train.num_envs
@@ -134,8 +158,15 @@ class Trainer:
             world, cfg.env, cfg.train.num_envs,
             torch.Generator(device=self.device).manual_seed(seed + 1),
             lane_worlds=lane_worlds)
+        self.mesh = mesh
+        if mesh is not None:
+            # the stats are per agent ([N]), never per lane
+            self.carry = shard_carry(self.carry._replace(stats=None), mesh,
+                                     cfg.train.num_envs)._replace(stats=self.carry.stats)
+            self.lane_worlds = shard_carry(lane_worlds, mesh, cfg.train.num_envs)
         self._train_epoch = make_train_epoch(self.ac, world, cfg, self.pi_opt,
-                                             self.vf_opt, lane_worlds=lane_worlds)
+                                             self.vf_opt, lane_worlds=self.lane_worlds,
+                                             mesh=mesh)
         self.phase_hook: Optional[PhaseHook] = None
 
     def run_epoch(self) -> Dict[str, Any]:

@@ -6,12 +6,20 @@
     python -m rvo3d_tpu_torch.cli eval --world world32_mix \\
         --checkpoint <run_dir> --ckpt_epoch 5 --reverse
 
+    python -m rvo3d_tpu_torch.cli train --world world16_dense \
+        --curriculum 1.2:80,0.8:80,0.4:rest ...
+    python -m rvo3d_tpu_torch.cli eval --world world16_dense \
+        --torch_checkpoint policy.pt --rnn_mode biGRU
+
 A run directory gets the full config as JSON, train.jsonl, checkpoints
 under ckpt/ (<epoch>/state.pt), results.txt (one line per evaluated
 population, in the JAX CLI's format) and best_checkpoint.json. Both
 commands run on `--device` (default cuda; without a card they raise).
-Flags and commands that are not ported yet raise, naming their ROADMAP
-item.
+`train` runs data-parallel over its lanes when started as several
+processes with the RVO3D_* variables (parallel/multihost.py) and
+`--mesh_data <world size>` or `--auto_mesh`; rank 0 alone writes the run
+directory. Flags and commands that are not ported yet raise, naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,11 +30,7 @@ import os
 import sys
 
 # flag -> (its default, the ROADMAP item of the port that will bring it)
-NOT_PORTED = {
-    "curriculum": (None, "A15"), "render_every": (0, "A15"),
-    "torch_checkpoint": (None, "A16"), "mesh_data": (1, "A16"),
-    "mesh_model": (1, "A16"), "auto_mesh": (False, "A16"),
-}
+NOT_PORTED = {"render_every": (0, "A15"), "mesh_model": (1, "A18")}
 COMMANDS_NOT_PORTED = {"worldgen": "A15", "render": "A15", "parity": "A15",
                        "bench": "A17"}
 
@@ -55,6 +59,12 @@ def _refuse_unported(args) -> None:
                              f"(ROADMAP {item})")
 
 
+def _results_line(path: str, line: str) -> None:
+    print(line)
+    with open(path, "a") as f:
+        f.write(line + "\n")
+
+
 def _load_spec(token: str, device, dtype=None):
     """'name' or 'name:rev' (the route-reversed variant) as a WorldSpec."""
     import torch
@@ -80,7 +90,7 @@ def _build_cfg(args):
                     safe_rewards=not args.unsafe_rewards, noise=args.train_noise,
                     control_std=args.train_control_std)
     model = ModelConfig(rnn_hidden_dim=args.rnn_hidden_dim, rnn_mode=args.rnn_mode,
-                        log_std_init=args.log_std_init)
+                        log_std_init=args.log_std_init, use_pallas_gru=args.pallas_gru)
     train = TrainConfig(
         pi_lr=args.pi_lr, vf_lr=args.vf_lr, train_epoch=args.train_epoch,
         steps_per_epoch=args.steps_per_epoch, max_ep_len=args.max_ep_len,
@@ -98,12 +108,51 @@ def _build_cfg(args):
                   world=args.world), wd
 
 
+def _mesh_from_args(cfg, args):
+    """The data-parallel mesh the flags ask for (None for one process), as
+    the JAX CLI decides it: --mesh_data N (N = the world size), or
+    --auto_mesh when several processes run."""
+    import torch.distributed as dist
+
+    from rvo3d_tpu_torch.parallel import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if cfg.mesh.data * cfg.mesh.model > 1 or (args.auto_mesh and world > 1):
+        data = cfg.mesh.data if cfg.mesh.data > 1 else world // cfg.mesh.model
+        try:
+            return make_mesh(data=data, model=cfg.mesh.model)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    if world > 1:
+        raise SystemExit(f"{world} processes joined, but neither --mesh_data {world} "
+                         "nor --auto_mesh was given")
+    return None
+
+
+def _shared_run_dir(args, tag: str, mesh) -> str:
+    """--run_dir, or a fresh runs_torch/<tag>_<i> that rank 0 picks."""
+    run_dir = args.run_dir
+    if run_dir is None and (mesh is None or mesh.rank == 0):
+        run_dir = _fresh_run_dir("runs_torch", tag)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        box = [run_dir]
+        dist.broadcast_object_list(box, src=0)
+        run_dir = box[0]
+    return run_dir
+
+
 def cmd_train(args) -> int:
+    import dataclasses
+
     import torch
 
     from rvo3d_tpu_torch.algo.evaluator import evaluate
     from rvo3d_tpu_torch.algo.trainer import Trainer
     from rvo3d_tpu_torch.config import to_dict
+    from rvo3d_tpu_torch.parallel import distributed_init_from_env, is_coordinator, replicate
+    from rvo3d_tpu_torch.parallel.multihost import rank_device
     from rvo3d_tpu_torch.utils.checkpoint import (BestCheckpoint, restore_checkpoint,
                                                   save_checkpoint)
     from rvo3d_tpu_torch.utils.device import resolve_device
@@ -113,6 +162,10 @@ def cmd_train(args) -> int:
 
     _refuse_unported(args)
     dev = resolve_device(args.device)
+    distributed_init_from_env(dev)
+    dev = rank_device(dev)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
     cfg, wd = _build_cfg(args)
     if args.bc_slowdown and args.bc_expert != "rvo":
         raise SystemExit("--bc_slowdown only affects the 'rvo' expert "
@@ -121,11 +174,20 @@ def cmd_train(args) -> int:
     if args.bc_margin is not None and args.bc_expert != "rvo":
         raise SystemExit("--bc_margin only affects the 'rvo' expert; pass "
                          "--bc_expert rvo or drop the flag")
-    run_dir = args.run_dir or _fresh_run_dir("runs_torch", f"r{wd.drone_num}")
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump(to_dict(cfg), f, indent=2)
-    print(f"run dir: {run_dir}")
+    if args.curriculum and args.multi_worlds:
+        raise SystemExit("--curriculum and --multi_worlds are not combinable (the "
+                         "curriculum path rebuilds the trainer per stage on the "
+                         "single world)")
+    mesh = _mesh_from_args(cfg, args)
+    lead = is_coordinator()
+    run_dir = _shared_run_dir(args, f"r{wd.drone_num}", mesh)
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(to_dict(cfg), f, indent=2)
+        print(f"run dir: {run_dir}")
+        if mesh is not None:
+            print(f"mesh: {{'data': {mesh.data}, 'model': 1}}")
 
     # multi-scenario training: lane e steps scenario e % K; every scenario
     # shares --world's drone count; 'name:rev' = route-reversed variant
@@ -138,12 +200,13 @@ def cmd_train(args) -> int:
                              f"--world's drone count ({wd.drone_num})")
         idx = torch.arange(cfg.train.num_envs) % len(lane_specs)
         lane_worlds = worlds_for_lanes(stack_worlds([sp for _, sp in lane_specs]), idx)
-        print("multi-scenario lanes: "
-              + ", ".join(f"{tok} x{int((idx == i).sum())}"
-                          for i, (tok, _) in enumerate(lane_specs)))
-        trainer = Trainer(cfg, world, lane_worlds=lane_worlds, device=dev)
+        if lead:
+            print("multi-scenario lanes: "
+                  + ", ".join(f"{tok} x{int((idx == i).sum())}"
+                              for i, (tok, _) in enumerate(lane_specs)))
+        trainer = Trainer(cfg, world, lane_worlds=lane_worlds, device=dev, mesh=mesh)
     else:
-        trainer = Trainer(cfg, world, device=dev)
+        trainer = Trainer(cfg, world, device=dev, mesh=mesh)
 
     resumed = False
     if args.resume:
@@ -157,13 +220,15 @@ def cmd_train(args) -> int:
                                               epoch=args.resume_epoch,
                                               params_only=args.resume_params_only)
                 resumed = True
-                print(f"resumed from {resume_dir} @ epoch {start}"
-                      + (" (params only, fresh optimizers)"
-                         if args.resume_params_only else ""))
+                if lead:
+                    print(f"resumed from {resume_dir} @ epoch {start}"
+                          + (" (params only, fresh optimizers)"
+                             if args.resume_params_only else ""))
             except FileNotFoundError:
                 if args.resume != "auto":
                     raise
-                print(f"resume auto: no steps in {resume_dir}; fresh start")
+                if lead:
+                    print(f"resume auto: no steps in {resume_dir}; fresh start")
     if not resumed and args.bc_steps:
         from rvo3d_tpu_torch.algo.bc import bc_pretrain
 
@@ -181,47 +246,118 @@ def cmd_train(args) -> int:
             expert_slowdown=args.bc_slowdown, env_noise=args.bc_env_noise)
         scen = (", ".join(tok for tok, _ in lane_specs) if lane_specs
                 else args.world)
-        print(f"BC warm start [{scen}]: {args.bc_steps} steps "
-              f"(dagger={args.bc_dagger}, noise={args.bc_noise}, "
-              f"margin={args.bc_margin}, "
-              f"cw={args.bc_conflict_weight}), final loss {bc_loss:.4f}")
+        if lead:
+            print(f"BC warm start [{scen}]: {args.bc_steps} steps "
+                  f"(dagger={args.bc_dagger}, noise={args.bc_noise}, "
+                  f"margin={args.bc_margin}, "
+                  f"cw={args.bc_conflict_weight}), final loss {bc_loss:.4f}")
+    if mesh is not None:   # every rank starts from rank 0's state
+        for obj in trainer.ppo_state:
+            replicate(obj, mesh)
 
-    logger = JSONLLogger(os.path.join(run_dir, "train.jsonl"), echo=not args.quiet)
+    logger = JSONLLogger(os.path.join(run_dir, "train.jsonl"), echo=not args.quiet) \
+        if lead else None
     ckpt_dir = os.path.join(run_dir, "ckpt")
-
-    def save(epoch, state):
-        save_checkpoint(ckpt_dir, epoch, state, cfg)
-
-    # every persisted checkpoint is scored (plus the --eval_every cadence);
-    # a multi-scenario run writes one results.txt line per population
     results_path = os.path.join(run_dir, "results.txt")
-    best = BestCheckpoint(run_dir)
 
-    def eval_fn(epoch, state, saved=True):
-        targets = lane_specs or [(None, trainer.world)]
-        min_success = 2.0
-        for tok, sp in targets:
-            m = evaluate(trainer.ac, sp, cfg.env,
-                         generator=torch.Generator(device=dev).manual_seed(epoch),
-                         num_episodes=args.eval_episodes, num_lanes=8,
-                         std_factor=cfg.train.std_factor_eval,
-                         action_mode=cfg.train.action_mode)
-            tag = f" [{tok}]" if tok is not None else ""
-            line = (f"epoch {epoch}{tag}: success {m['success_rate']:.2%} "
-                    f"EpLen {m['mean_ep_len']}±{m['std_ep_len']} "
-                    f"speed {m['mean_speed']}±{m['std_speed']}" + _eval_suffix(m))
-            print(line)
-            with open(results_path, "a") as f:
-                f.write(line + "\n")
-            min_success = min(min_success, m["success_rate"])
-        best.update(epoch, min_success, saved)
+    eval_kw = dict(num_episodes=args.eval_episodes, num_lanes=8,
+                   std_factor=cfg.train.std_factor_eval, action_mode=cfg.train.action_mode)
 
-    trainer.train(epochs=args.train_epoch, log_fn=logger.log, checkpoint_fn=save,
-                  eval_fn=eval_fn, eval_every=args.eval_every)
-    write_reward_csv(os.path.join(run_dir, "reward_curves.csv"), logger.read())
-    plot_reward_curves(os.path.join(run_dir, "train.jsonl"),
-                       os.path.join(run_dir, "reward_curves.png"))
+    # goal-threshold curriculum, e.g. "--curriculum 1.2:80,0.8:80,0.4:rest":
+    # a fresh Trainer (a fresh carry from the seed) per stage at that
+    # stage's threshold, the PPO state carried over; evaluations at the
+    # stage's threshold, and at each stage's end at {thr, final thr}
+    if args.curriculum:
+        stages = []
+        for part in args.curriculum.split(","):
+            thr, eps = part.split(":")
+            stages.append((float(thr), None if eps == "rest" else int(eps)))
+        final_thr = stages[-1][0]
+        done_epochs = 0
+        for thr, eps in stages:
+            budget = args.train_epoch - done_epochs
+            remaining = budget if eps is None else min(eps, budget)
+            if remaining <= 0:
+                break
+            cfg_stage = cfg.replace(env=dataclasses.replace(cfg.env, goal_threshold=thr))
+            prev, trainer = trainer, Trainer(cfg_stage, world, device=dev, mesh=mesh)
+            for dst, src in zip(trainer.ppo_state, prev.ppo_state):
+                dst.load_state_dict(src.state_dict())
+            del prev
+            if lead:
+                print(f"curriculum stage: goal_threshold={thr} for {remaining} epochs")
+
+            def log_stage(m, base=done_epochs, thr=thr):
+                m["epoch"] = base + m["epoch"]
+                m["goal_threshold"] = thr
+                logger.log(m)
+
+            def eval_stage(e, s, base=done_epochs, tr=trainer, p_stage=cfg_stage.env):
+                m = evaluate(tr.ac, tr.world, p_stage,
+                             generator=torch.Generator(device=dev).manual_seed(base + e),
+                             **eval_kw)
+                _results_line(results_path,
+                              f"epoch {base + e} (stage thr={p_stage.goal_threshold}):"
+                              f" success {m['success_rate']:.2%} "
+                              f"EpLen {m['mean_ep_len']}±{m['std_ep_len']}"
+                              + _eval_suffix(m))
+
+            def save_stage(e, s, base=done_epochs, c=cfg_stage):
+                save_checkpoint(ckpt_dir, base + e, s, c)
+
+            trainer.train(epochs=remaining - 1, log_fn=log_stage if lead else _quiet,
+                          checkpoint_fn=save_stage if lead else None,
+                          eval_fn=eval_stage if lead else None)
+            done_epochs += remaining
+            if not lead:
+                continue
+            for thr_eval in sorted({thr, final_thr}):
+                p_eval = dataclasses.replace(cfg.env, goal_threshold=thr_eval)
+                m = evaluate(trainer.ac, trainer.world, p_eval,
+                             generator=torch.Generator(device=dev).manual_seed(done_epochs),
+                             **eval_kw)
+                _results_line(results_path,
+                              f"stage thr={thr} done (epoch {done_epochs}): "
+                              f"eval@{thr_eval} success {m['success_rate']:.2%} "
+                              f"EpLen {m['mean_ep_len']}±{m['std_ep_len']}"
+                              + _eval_suffix(m))
+    else:
+        # every persisted checkpoint is scored (plus the --eval_every
+        # cadence); a multi-scenario run writes one results.txt line per
+        # population
+        best = BestCheckpoint(run_dir) if lead else None
+
+        def eval_fn(epoch, state, saved=True):
+            targets = lane_specs or [(None, trainer.world)]
+            min_success = 2.0
+            for tok, sp in targets:
+                m = evaluate(trainer.ac, sp, cfg.env,
+                             generator=torch.Generator(device=dev).manual_seed(epoch),
+                             **eval_kw)
+                tag = f" [{tok}]" if tok is not None else ""
+                _results_line(results_path,
+                              f"epoch {epoch}{tag}: success {m['success_rate']:.2%} "
+                              f"EpLen {m['mean_ep_len']}±{m['std_ep_len']} "
+                              f"speed {m['mean_speed']}±{m['std_speed']}"
+                              + _eval_suffix(m))
+                min_success = min(min_success, m["success_rate"])
+            best.update(epoch, min_success, saved)
+
+        def save(epoch, state):
+            save_checkpoint(ckpt_dir, epoch, state, cfg)
+
+        trainer.train(epochs=args.train_epoch, log_fn=logger.log if lead else _quiet,
+                      checkpoint_fn=save if lead else None,
+                      eval_fn=eval_fn if lead else None, eval_every=args.eval_every)
+    if lead:
+        write_reward_csv(os.path.join(run_dir, "reward_curves.csv"), logger.read())
+        plot_reward_curves(os.path.join(run_dir, "train.jsonl"),
+                           os.path.join(run_dir, "reward_curves.png"))
     return 0
+
+
+def _quiet(_metrics) -> None:
+    """A non-coordinator rank's log function: rank 0 writes train.jsonl."""
 
 
 def cmd_eval(args) -> int:
@@ -236,9 +372,10 @@ def cmd_eval(args) -> int:
     from rvo3d_tpu_torch.worlds import load_world
 
     _refuse_unported(args)
-    if not args.checkpoint:
+    if not (args.checkpoint or args.torch_checkpoint):
         raise SystemExit("eval needs --checkpoint (a run dir, its ckpt/, or a "
-                         "PolicyServer.save file)")
+                         "PolicyServer.save file) or --torch_checkpoint (a "
+                         "reference policy's state dict)")
     dev = resolve_device(args.device)
     wd = load_world(args.world)
     eval_spec = _load_spec(args.world + (":rev" if args.reverse else ""), dev)
@@ -248,7 +385,14 @@ def cmd_eval(args) -> int:
     if args.noise:
         env_p = dataclasses.replace(env_p, noise=True, control_std=args.control_std)
 
-    if args.checkpoint.endswith(".pt"):
+    if args.torch_checkpoint:
+        from rvo3d_tpu_torch.config import ModelConfig
+        from rvo3d_tpu_torch.models import ActorCritic
+        from rvo3d_tpu_torch.utils.torch_import import load_reference_policy
+
+        ac = ActorCritic(ModelConfig(rnn_mode=args.rnn_mode), device=dev)
+        ac.load_state_dict(load_reference_policy(args.torch_checkpoint, args.rnn_mode))
+    elif args.checkpoint.endswith(".pt"):
         ac = PolicyServer.from_checkpoint(args.checkpoint, device=dev).ac
     else:
         server = PolicyServer.from_torch(args.checkpoint, args.ckpt_epoch, device=dev)
@@ -356,12 +500,22 @@ def main(argv=None) -> int:
     t.add_argument("--unsafe_rewards", action="store_true")
     t.add_argument("--action_mode", default="increment",
                    choices=["increment", "direct"])
-    t.add_argument("--mesh_data", type=int, default=1, help="not ported (A16)")
-    t.add_argument("--mesh_model", type=int, default=1, help="not ported (A16)")
-    t.add_argument("--auto_mesh", action="store_true", help="not ported (A16)")
+    t.add_argument("--pallas_gru", action="store_true",
+                   help="recorded in the config; on CUDA the masked GRU always "
+                        "runs the hand-written kernel")
+    t.add_argument("--force_sequential", action="store_true",
+                   help="accepted for the JAX CLI's scripts: the port never "
+                        "switches the sequential update to the batched one")
+    t.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel ranks over the lanes (= the process count)")
+    t.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor parallelism: only 1 (ROADMAP A18)")
+    t.add_argument("--auto_mesh", action="store_true",
+                   help="data-parallel over every process that joined")
     t.add_argument("--quiet", action="store_true")
     t.add_argument("--eval_every", type=int, default=0)
-    t.add_argument("--curriculum", default=None, help="not ported (A15)")
+    t.add_argument("--curriculum", default=None,
+                   help="goal-threshold schedule, e.g. '1.2:80,0.8:80,0.4:rest'")
     t.add_argument("--eval_episodes", type=int, default=40)
     t.set_defaults(fn=cmd_train)
 
@@ -370,7 +524,10 @@ def main(argv=None) -> int:
     e.add_argument("--world", default="world_3")
     e.add_argument("--checkpoint", default=None,
                    help="run dir with ckpt/, or a PolicyServer.save .pt file")
-    e.add_argument("--torch_checkpoint", default=None, help="not ported (A16)")
+    e.add_argument("--torch_checkpoint", default=None,
+                   help="a reference policy's state dict (utils/torch_import.py)")
+    e.add_argument("--rnn_mode", default="biGRU", choices=["GRU", "biGRU", "LSTM"],
+                   help="the --torch_checkpoint policy's encoder")
     e.add_argument("--episodes", type=int, default=100)
     e.add_argument("--lanes", type=int, default=16)
     e.add_argument("--max_ep_len", type=int, default=150)

@@ -1,10 +1,10 @@
 """Typed configuration for the env, the policy and training.
 
-The port's own copy of the JAX package's `EnvParams`, `ModelConfig`,
-`TrainConfig`, `MeshConfig` and `Config` (rvo3d_tpu/config.py), field for
-field, so a run directory's `config.json` written by either package loads
-in both. The port's trainer (algo/trainer.py) reads TrainConfig; MeshConfig
-is kept so that such files load (the port runs on one card).
+The port's own copy of the JAX package's `EnvParams`,
+`kinematic_variant_params`, `ModelConfig`, `TrainConfig`, `MeshConfig` and
+`Config` (rvo3d_tpu/config.py), field for field, so a run directory's
+`config.json` written by either package loads in both. MeshConfig records
+the CLI's `--mesh_data`/`--mesh_model` (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -60,6 +60,14 @@ class EnvParams:
         return self.self_state_dim + self.rvo_state_dim * self.neighbor_num
 
 
+def kinematic_variant_params(**overrides) -> EnvParams:
+    """The reference's standalone `kinematic.py` model variant: the same
+    speed, yaw and pitch kinematics with max_acc = 10 (drone.py has 1.0)."""
+    kw = dict(max_acc=10.0)
+    kw.update(overrides)
+    return EnvParams(**kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Policy network shape (defaults: the biGRU-256 flagship)."""
@@ -69,10 +77,10 @@ class ModelConfig:
     rnn_hidden_dim: int = 256
     hidden_sizes_ac: Tuple[int, ...] = (256, 256)
     hidden_sizes_v: Tuple[int, ...] = (256, 256)
-    rnn_mode: str = "biGRU"          # 'GRU' | 'biGRU' ('LSTM' is not ported yet)
+    rnn_mode: str = "biGRU"          # 'GRU' | 'biGRU' | 'LSTM'
     log_std_init: float = -1.0
-    param_dtype: str = "float32"
-    compute_dtype: str = "float32"
+    param_dtype: str = "float32"     # 'float32' | 'bfloat16' (models/actor_critic.py)
+    compute_dtype: str = "float32"   # 'float32' | 'bfloat16'
     # Read from config.json files only; the port decides nothing with it
     # (on CUDA the masked GRU always runs the hand-written kernel).
     use_pallas_gru: bool = False

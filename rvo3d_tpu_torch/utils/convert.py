@@ -4,7 +4,7 @@ the port.
 The JAX package's ActorCritic params are a nested dict in the flax layout
 (dense kernels [in, out]); the port's ActorCritic state_dict uses
 nn.Linear's [out, in]. GRU weights keep the [in, 3H] / [H, 3H] layout in
-both. Names:
+both, and the LSTM's (`fwd` only) [in, 4H] / [H, 4H]. Names:
 
   params/encoder/{fwd,bwd}/{w_ih,w_hh,b_ih,b_hh} <-> encoder.{fwd,bwd}.*
   params/encoder/ln/{scale,bias}                 <-> encoder.ln.{weight,bias}

@@ -10,7 +10,9 @@ files and checkpoint epochs, train.jsonl's keys line by line, the
 results.txt lines (one per population and evaluated epoch, same order,
 same format), best_checkpoint.json's keys and hint, config.json's keys,
 and the format of eval's line. Flags and commands that are not ported
-raise, naming their ROADMAP item.
+raise, naming their ROADMAP item (--curriculum, --torch_checkpoint and the
+data-parallel flags are held by tests/test_torch_{curriculum,ref_import,
+parallel}.py).
 """
 
 import json
@@ -106,11 +108,8 @@ def test_eval_reverse_line_matches_the_jax_format(runs):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--device", "cpu", "--world", "gen_demo", "--curriculum", "1.2:1"], "A15"),
     (["train", "--device", "cpu", "--world", "gen_demo", "--render_every", "2"], "A15"),
-    (["train", "--device", "cpu", "--world", "gen_demo", "--mesh_data", "2"], "A16"),
-    (["eval", "--device", "cpu", "--world", "gen_demo", "--torch_checkpoint", "x.pt"],
-     "A16"),
+    (["train", "--device", "cpu", "--world", "gen_demo", "--mesh_model", "2"], "A18"),
     (["worldgen", "--name", "x"], "A15"),
     (["render", "--world", "gen_demo"], "A15"),
     (["parity"], "A15"),

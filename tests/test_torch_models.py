@@ -150,10 +150,13 @@ def test_init_is_reproducible_from_generator():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        ActorCritic(ModelConfig(rnn_mode="LSTM", **SMALL), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ActorCritic(ModelConfig(compute_dtype="bfloat16", **SMALL), device="cpu")
+    """LSTM and bfloat16 are ported (tests/test_torch_lstm.py,
+    tests/test_torch_dtypes.py); what neither package has raises."""
+    with pytest.raises(ValueError, match="rnn mode"):
+        ActorCritic(ModelConfig(rnn_mode="RNN", **SMALL), device="cpu")
+    for field in ("compute_dtype", "param_dtype"):
+        with pytest.raises(ValueError, match="float16"):
+            ActorCritic(ModelConfig(**{field: "float16"}, **SMALL), device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["GRU", "biGRU"])

@@ -96,7 +96,7 @@ def inject(ac, draws):
     """Make the port's policy use `draws` (in order) for its samples."""
     it = iter(draws)
 
-    def step(obs_self, obs_nbr, obs_mask, std_factor=1.0, generator=None):
+    def step(obs_self, obs_nbr, obs_mask, std_factor=1.0, generator=None, eps=None):
         mu, std, v = ac(obs_self, obs_nbr, obs_mask, std_factor)
         a = mu + std * next(it)
         return PolicyStep(action=a, value=v, logp=ac.logp_of(mu, std, a),
