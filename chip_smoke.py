@@ -36,9 +36,10 @@ against the CPU and each lane against its own world's single-world run
 (rvo3d_tpu_torch/assets/w32_m3s_e5.pt) scored det on both populations
 (`w32_product_eval`); and the w32_m3s recipe through the port's own CLI
 in-process (`bc_ppo_recipe`: BC on the RVO expert with 3 DAgger rounds,
-then PPO, 64 lanes x 32 drones, biGRU-256, batch 4096, minibatch 16384;
-one `bc_round` line per fit, one `ppo_epoch` line per epoch, the kernel
-held to its plain version at the rows the path gave it, and the gate:
+then PPO for 5 epochs (the run's 10 cut), 64 lanes x 32 drones,
+biGRU-256, batch 4096, minibatch 16384; one `bc_round` line per fit, one
+`ppo_epoch` line per epoch, the kernel held to its plain version at the
+rows the path gave it, and the gate:
 det success >= 0.8 on both populations at the best persisted epoch).
 Then the LSTM and bfloat16 policies, data-parallel lanes, the curriculum,
 reference-policy import and the profiler: `lstm_policy` (an LSTM-256 policy
@@ -59,6 +60,20 @@ biGRU-256 state dict from the seed, card against CPU, then
 (utils/profiler.trace over 5 rollout steps at w16_r4's width: the 15 CUDA
 ops with the most device time, launches per step, the masked-GRU kernel
 among them; the trace goes to chiprun_out/profile_rollout_step/).
+Then world generation, the oracle parity check, rendering and tensor
+parallelism: `worldgen_parity` (`cli worldgen` of a 16-drone world at
+world16_dense's map size, seed 0, then `cli parity --x64 --device cuda`,
+200 steps: train mode on it, gen_demo, world16_dense and world32_mix, eval
+and noise modes on world16_dense; any [FAIL] fails the phase),
+`render_record` (record_trajectory of the w16_r4 product on world16_dense,
+100 steps through the CLI's policy controller with draws from a CPU
+generator, on the card against the CPU: the first step where they part,
+if any, must follow a 2-decimal rounding tie of an action; no frames are
+drawn where matplotlib is absent, and the line says so) and
+`tensor_parallel_epoch` (this script started twice more, `--tp-worker`, as
+two gloo ranks on this card running `cli train --mesh_model 2` on
+`data_parallel_epoch`'s config, held against its one-process epoch at the
+same tolerances).
 Each of these phases that launches the masked GRU keeps the kernel's
 inputs at its first launch with each row count and holds the kernel to its
 plain version on them (`kernel_at_path_rows`, atol 1e-4); `bf16_serve` also
@@ -132,9 +147,10 @@ W32_GATE = {"world32_mix": {"min_success": 0.95, "ep_len": (29.0, 0.3)},
             "world32_mix:rev": {"min_success": 0.95, "ep_len": (30.0, 0.3)}}
 MULTI_LANES, MULTI_STEPS = 64, 100
 # The w32_m3s recipe (scripts/round5_tpu_queue3.sh:97-105) through the
-# port's CLI at full width and depth: no cut (a cut would go, in this
-# order, to PPO epochs, eval episodes, DAgger rounds, and be printed)
-RECIPE_EPOCHS = 10
+# port's CLI at full width; its depth is cut only in PPO epochs, from 10
+# to 5, to keep the script near half its time limit (a further cut would
+# go, in this order, to eval episodes and DAgger rounds); `cuts` prints it
+RECIPE_RUN_EPOCHS, RECIPE_EPOCHS = 10, 5
 RECIPE_EVAL_EPISODES = 100
 RECIPE_DAGGER = 3
 RECIPE_MIN_SUCCESS = 0.8      # det, worst population, best persisted epoch
@@ -150,6 +166,9 @@ DP_METRIC_TOL = {"rtol": 1e-3, "atol": 1e-3}  # tests/test_sharding.py:111-114
 DP_PARAM_TOL = 1e-5
 BF16_GATE = {"mu": 0.05, "v": 0.2}           # tests/test_models.py:173-174
 PROFILE_STEPS = 5
+PARITY_STEPS = 200
+RENDER_STEPS = 100
+RENDER_POS_TOL = 1e-4      # card vs CPU float32 positions over 100 steps
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROFILE_DIR = os.path.join(REPO, "chiprun_out", "profile_rollout_step")
 
@@ -348,9 +367,11 @@ def cli_epoch_recorded(argv):
     return seen
 
 
-def dp_worker(out_dir) -> int:
-    """One rank of `data_parallel_epoch` (started with the RVO3D_* variables):
-    the CLI epoch over the mesh, recorded to <out_dir>/rank<r>.pt."""
+def dp_worker(out_dir, tag="dp") -> int:
+    """One rank of `data_parallel_epoch` (tag "dp": --mesh_data 2) or of
+    `tensor_parallel_epoch` (tag "tp": --mesh_model 2), started with the
+    RVO3D_* variables: the CLI epoch over the mesh, recorded to
+    <out_dir>/<tag>_rank<r>.pt."""
     import torch
     import torch.distributed as dist
 
@@ -358,20 +379,49 @@ def dp_worker(out_dir) -> int:
     from rvo3d_tpu_torch.parallel import distributed_init_from_env
 
     if not distributed_init_from_env("cuda"):
-        raise SystemExit("--dp-worker needs the RVO3D_* variables")
+        raise SystemExit("--dp-worker/--tp-worker needs the RVO3D_* variables")
+    mesh_flags = {"dp": ["--mesh_data", str(DP_RANKS)],
+                  "tp": ["--mesh_model", str(DP_RANKS)]}[tag]
     keep = {}
     with kernel_inputs_kept(mg, keep):
-        seen = cli_epoch_recorded(dp_argv(os.path.join(out_dir, "dp"),
+        seen = cli_epoch_recorded(dp_argv(os.path.join(out_dir, tag),
                                           os.path.join(out_dir, "start", "ckpt"))
-                                  + ["--mesh_data", str(DP_RANKS)])
+                                  + mesh_flags)
     seen["kernel_inputs"] = {b: (xs.cpu(), ms.cpu(), [tuple(w.cpu() for w in ws)
                                                       for ws in weights], rev)
                              for b, (xs, ms, weights, rev) in keep.items()}
     seen["backend"] = dist.get_backend()
-    torch.save(seen, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    torch.save(seen, os.path.join(out_dir, f"{tag}_rank{dist.get_rank()}.pt"))
     dist.barrier()
     dist.destroy_process_group()
     return 0 if seen["rc"] == 0 else 1
+
+
+def start_ranks(flag, tmp):
+    """This script `flag tmp` (--dp-worker or --tp-worker) in DP_RANKS
+    processes joined over a local port; their logs, once all exited 0."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, tmp],
+        env=dict(os.environ, RVO3D_COORDINATOR=f"127.0.0.1:{port}",
+                 RVO3D_NUM_PROCESSES=str(DP_RANKS), RVO3D_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_RANKS)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+    return logs
 
 
 def reference_state_dict(seed, hidden=256, heads=(256, 256)):
@@ -407,6 +457,7 @@ def main(argv=None) -> int:
     ap.add_argument("--old-kernel", help="an older one-block masked_gru.cu "
                     "(PR-4 interface) to time in turns with this kernel")
     ap.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -420,6 +471,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.dp_worker:
         return dp_worker(args.dp_worker)
+    if args.tp_worker:
+        return dp_worker(args.tp_worker, "tp")
     import numpy as np
 
     from rvo3d_tpu_torch.algo import ppo
@@ -1281,7 +1334,8 @@ def main(argv=None) -> int:
             problems.append(f"best persisted checkpoint {best}: the gate is det "
                             f"success >= {RECIPE_MIN_SUCCESS} on every population "
                             f"over >= {RECIPE_MIN_EPISODES} episodes")
-        summary = {"argv": argv, "cuts": [], "wall_s": wall,
+        summary = {"argv": argv, "cuts": {"train_epoch": [RECIPE_RUN_EPOCHS, RECIPE_EPOCHS]},
+                   "wall_s": wall,
                    "bc_s": sum(r["collect_s"] + r["fit_s"] for r in rounds),
                    "ppo_s": sum(ln["epoch_time_s"] for ln in epochs),
                    "eval_s": sum(e["seconds"] for e in evals),
@@ -1433,40 +1487,28 @@ def main(argv=None) -> int:
                 "card": smi}
     run_phase("bf16_serve", bf16_serve)
 
-    def data_parallel_epoch():
-        """One epoch through `cli train --mesh_data 2` in two gloo ranks on
-        this card (64 lanes each) against the same epoch in one process."""
+    def write_start(tmp):
+        """<tmp>/start/ckpt: the product's params with fresh optimizers, the
+        start of the data- and tensor-parallel epochs."""
         from rvo3d_tpu_torch.algo.ppo import PPOState, make_optimizers
         from rvo3d_tpu_torch.utils.checkpoint import save_checkpoint
 
+        start = os.path.join(tmp, "start", "ckpt")
+        ac_s = ActorCritic(run_cfg.model, device=dev)
+        ac_s.load_state_dict(product["state_dict"])
+        save_checkpoint(start, 0, PPOState(ac_s, *make_optimizers(run_cfg.train, ac_s)),
+                        run_cfg)
+        return start, ac_s
+
+    dp_one = {}    # the one-process epoch, which tensor_parallel_epoch reuses
+
+    def data_parallel_epoch():
+        """One epoch through `cli train --mesh_data 2` in two gloo ranks on
+        this card (64 lanes each) against the same epoch in one process."""
         with tempfile.TemporaryDirectory() as tmp:
-            start = os.path.join(tmp, "start", "ckpt")
-            ac_p = ActorCritic(run_cfg.model, device=dev)
-            ac_p.load_state_dict(product["state_dict"])
-            save_checkpoint(start, 0, PPOState(ac_p, *make_optimizers(run_cfg.train, ac_p)),
-                            run_cfg)
-            with socket.socket() as sk:
-                sk.bind(("127.0.0.1", 0))
-                port = sk.getsockname()[1]
-            procs = [subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-worker", tmp],
-                env=dict(os.environ, RVO3D_COORDINATOR=f"127.0.0.1:{port}",
-                         RVO3D_NUM_PROCESSES=str(DP_RANKS), RVO3D_PROCESS_ID=str(r)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for r in range(DP_RANKS)]
-            logs = []
-            try:
-                for proc in procs:
-                    logs.append(proc.communicate(timeout=DP_TIMEOUT_S)[0])
-            finally:
-                for proc in procs:
-                    if proc.poll() is None:
-                        proc.kill()
-                        proc.wait()
-            for r, (proc, log) in enumerate(zip(procs, logs)):
-                if proc.returncode != 0:
-                    raise AssertionError(f"rank {r} exited {proc.returncode}:\n{log[-3000:]}")
-            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            start, ac_p = write_start(tmp)
+            logs = start_ranks("--dp-worker", tmp)
+            ranks = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"), weights_only=False)
                      for r in range(DP_RANKS)]
             mg.launches = 0
             keep_one = {}
@@ -1476,6 +1518,7 @@ def main(argv=None) -> int:
             run_dp, run_one = os.path.join(tmp, "dp"), os.path.join(tmp, "one")
             params = [torch.load(os.path.join(r, "ckpt", "0", "state.pt"),
                                  weights_only=False)["params"] for r in (run_dp, run_one)]
+            dp_one.update(one=one, params=params[1], launches=one_launches)
             with open(os.path.join(run_dp, "train.jsonl")) as f:
                 jsonl = [ln for ln in f if ln.strip()]
             with open(os.path.join(run_dp, "results.txt")) as f:
@@ -1696,6 +1739,255 @@ def main(argv=None) -> int:
             raise AssertionError(f"the masked GRU kernel is not in the trace: {out}")
         return out
     run_phase("profile_rollout_step", profile_rollout_step)
+
+    def worldgen_parity():
+        """`cli worldgen` of a 16-drone world at world16_dense's map size,
+        then `cli parity --x64 --device cuda` (the env on this card against
+        the NumPy oracle, 200 steps): train mode on it, gen_demo,
+        world16_dense and world32_mix; eval and noise modes on
+        world16_dense. Any [FAIL] fails the phase."""
+        import io
+        import re
+
+        line_re = re.compile(r"^\[(OK |FAIL)\] (\S+) \[(\S+)\]: (\d+) steps, (\d+) "
+                             r"episode boundaries, max \|pos err\|=(\S+), max "
+                             r"\|reward err\|=(\S+), flags (\w+)(.*) \((x64|f32)\)$")
+        out, problems = {}, []
+        mg.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["worldgen", "--name", "gen16", "--drones", "16",
+                               "--map_size", "24", "24", "8", "--seed", "0", "--out", tmp])
+            out["worldgen"] = buf.getvalue().strip()
+            if rc != 0 or "16 drones" not in out["worldgen"]:
+                problems.append(f"worldgen: rc {rc}, {out['worldgen']!r}")
+            gen = os.path.join(tmp, "gen16")
+            for mode, worlds, flags in (
+                    ("train", [gen, "gen_demo", WORLD, "world32_mix"], []),
+                    ("eval", [WORLD], ["--eval_mode"]),
+                    ("noise", [WORLD], ["--noise"])):
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["parity", "--x64", "--device", "cuda", "--steps",
+                                   str(PARITY_STEPS), "--worlds", *worlds, *flags])
+                lines = buf.getvalue().splitlines()
+                rows = {}
+                for ln in lines:
+                    m = line_re.match(ln)
+                    if m is None:
+                        problems.append(f"{mode}: unparsed line {ln!r}")
+                        continue
+                    rows[os.path.basename(m.group(2))] = {
+                        "ok": m.group(1) == "OK ", "max_pos_err": float(m.group(6)),
+                        "max_reward_err": float(m.group(7)), "flags": m.group(8),
+                        "episode_boundaries": int(m.group(5)), "note": m.group(9).strip()}
+                out[mode] = {"seconds": time.perf_counter() - t0, "worlds": rows,
+                             "lines": lines}
+                if rc != 0 or len(rows) != len(worlds) or not all(
+                        r["ok"] for r in rows.values()):
+                    problems.append(f"parity {mode}: rc {rc}, {lines}")
+        launches_by_phase["worldgen_parity"] = mg.launches   # no policy: 0
+        out["tolerance"] = 1e-12
+        out["gru_launches"] = mg.launches
+        out["card"] = smi
+        if problems:
+            raise AssertionError(f"{problems}: {out}")
+        return out
+    run_phase("worldgen_parity", worldgen_parity)
+
+    def render_record():
+        """record_trajectory of the w16_r4 product on world16_dense through
+        the CLI's policy controller (its training mapping, std factor 1e-3,
+        draws from a CPU generator), on the card against the CPU."""
+        from rvo3d_tpu_torch.render import ScenePlotter, record_trajectory
+
+        env_p = dataclasses.replace(run_cfg.env, noise=False)
+        records, actions = {}, {}
+        keep = {}
+        mg.launches = 0
+        for d in (dev, torch.device("cpu")):
+            ac_d = ActorCritic(run_cfg.model, device=d)
+            ac_d.load_state_dict(product["state_dict"])
+            env = DroneEnv(load_world(run_cfg.world).spec(device=d), env_p)
+            ctrl = cli._policy_controller(ac_d, env_p, action_mode=run_cfg.train.action_mode,
+                                          seed=SEED)
+            acts = []
+
+            def recorded(state, world, ctrl=ctrl, acts=acts):
+                a = ctrl(state, world)
+                acts.append(a.cpu())
+                return a
+            t0 = time.perf_counter()
+            with kernel_inputs_kept(mg, keep) if d.type == "cuda" else contextlib.nullcontext():
+                records[d.type] = record_trajectory(env, recorded, steps=RENDER_STEPS)
+            records[d.type + "_seconds"] = time.perf_counter() - t0
+            actions[d.type] = torch.stack(acts)
+        launches_by_phase["render_record"] = mg.launches
+        card, host = records["cuda"], records["cpu"]
+        parted, worst = None, 0.0
+        for t in range(RENDER_STEPS):
+            pos_err = float(np.abs(card["pos"][t] - host["pos"][t]).max())
+            flags = all(np.array_equal(card[k][t], host[k][t])
+                        for k in ("done", "finish", "obs_mask"))
+            if not flags or pos_err > RENDER_POS_TOL:
+                parted = t
+                break
+            worst = max(worst, pos_err,
+                        float(np.abs(card["reward"][t] - host["reward"][t]).max()))
+        # where the two part, the first differing action must be a 2-decimal
+        # rounding tie of the policy's sample (exactly 0.01 apart, ROADMAP C3)
+        diff = (actions["cuda"] - actions["cpu"]).abs()
+        first_act = next((t for t in range(RENDER_STEPS) if diff[t].max() > 0), None)
+        tie = first_act is not None and bool(
+            ((diff[first_act] == 0) | ((diff[first_act] - 0.01).abs() < 1e-5)).all())
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            frames = "not drawn: matplotlib is not installed on this machine"
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                wd_r = load_world(run_cfg.world)
+                plotter = ScenePlotter(wd_r.map_size, wd_r.building_list, wd_r.waypoints_list)
+                try:
+                    frames = len(plotter.render_trajectory(card, tmp, every=50))
+                finally:
+                    plotter.close()
+        at_rows = kernel_at_kept_rows(mg, keep, want=(run_cfg.env.num_drones,))
+        out = {"world": run_cfg.world, "steps": RENDER_STEPS,
+               "action_mode": run_cfg.train.action_mode,
+               "record_seconds": {k: v for k, v in records.items()
+                                  if k.endswith("_seconds")},
+               "parted_at_step": parted, "first_action_difference_step": first_act,
+               "first_action_difference_is_rounding_tie": tie,
+               "max_abs_diff_before_parting": worst, "pos_tol": RENDER_POS_TOL,
+               "collisions": int(card["done"].sum()), "finished": int(card["finish"][-1].sum()),
+               "frames": frames, "gru_launches": mg.launches,
+               "kernel_at_path_rows": at_rows, "atol": ATOL, "card": smi}
+        if mg.launches == 0:
+            raise AssertionError(f"the card record launched no masked GRU: {out}")
+        if parted is not None and not (tie and first_act <= parted):
+            raise AssertionError(f"card and CPU records part at step {parted}: {out}")
+        return out
+    run_phase("render_record", render_record)
+
+    def tensor_parallel_epoch():
+        """dp_argv's epoch through `cli train --mesh_model 2` in two gloo
+        ranks on this card (each steps all 128 lanes and holds half of the
+        sharded weights) against the one-process epoch of
+        data_parallel_epoch: the metrics at DP_METRIC_TOL; the rollout equal
+        up to its first differing action, which must be a 2-decimal
+        rounding tie (the row-parallel sum of two partial products rounds
+        differently from one product); the final params within
+        DP_PARAM_TOL of the one-process update run here on the ranks' own
+        rollout batch."""
+        from rvo3d_tpu_torch.algo.gae import gae_advantages
+        from rvo3d_tpu_torch.algo.ppo import AgentData, make_optimizers, ppo_update
+        from rvo3d_tpu_torch.utils.checkpoint import load_config
+
+        one = dp_one["one"]
+        with tempfile.TemporaryDirectory() as tmp:
+            write_start(tmp)
+            logs = start_ranks("--tp-worker", tmp)
+            ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False)
+                     for r in range(DP_RANKS)]
+            run_tp = os.path.join(tmp, "tp")
+            params = torch.load(os.path.join(run_tp, "ckpt", "0", "state.pt"),
+                                weights_only=False)["params"]
+            cfg_tp = load_config(run_tp)
+            with open(os.path.join(run_tp, "train.jsonl")) as f:
+                jsonl = [ln for ln in f if ln.strip()]
+            with open(os.path.join(run_tp, "results.txt")) as f:
+                results = f.read().splitlines()
+            ckpts = sorted(os.listdir(os.path.join(run_tp, "ckpt")))
+        problems, rollout, first_diff = [], {}, {}
+        for r, got in enumerate(ranks):
+            b, ref = got["batch"], one["batch"]
+            if any(not torch.equal(b[k], ranks[0]["batch"][k]) for k in b):
+                problems.append(f"rank {r}: its rollout differs from rank 0's")
+            d_act = (b["act"] - ref["act"]).abs().flatten(1).amax(1)     # [T]
+            t0 = next((t for t in range(len(d_act)) if d_act[t] > 0), None)
+            first_diff[f"rank{r}"] = t0
+            upto = len(d_act) if t0 is None else t0
+            for k in ref:
+                if not torch.equal(b[k][:upto], ref[k][:upto]) and k not in ("val", "logp"):
+                    problems.append(f"rank {r}: rollout {k} differs before step {upto}")
+            if t0 is not None:
+                da = (b["act"][t0] - ref["act"][t0]).abs()
+                if not bool(((da == 0) | ((da - 0.01).abs() < 1e-5)).all()):
+                    problems.append(f"rank {r}: first action difference at step {t0} is "
+                                    f"not a 0.01 rounding tie (max {da.max().item()})")
+            rollout[f"rank{r}"] = {k: (b[k].double() - ref[k].double()).abs().max().item()
+                                   for k in ref if ref[k].is_floating_point()}
+            for k in DP_KEYS:
+                if not np.allclose(got["metrics"][k], one["metrics"][k], **DP_METRIC_TOL):
+                    problems.append(f"rank {r}: {k} {got['metrics'][k]} vs "
+                                    f"{one['metrics'][k]}")
+        # the one-process update on the ranks' rollout batch, from the same
+        # start (the product's params, fresh optimizers, the update generator
+        # seeded as Trainer seeds it)
+        tr = cfg_tp.train
+        ac_u = ActorCritic(cfg_tp.model, device=dev)
+        ac_u.load_state_dict(product["state_dict"])
+        pi_u, vf_u = make_optimizers(tr, ac_u)
+        b = {k: v.to(dev) for k, v in ranks[0]["batch"].items()}
+        adv, ret = gae_advantages(b["rew"], b["val"], b["cut"][:, :, None], tr.gamma, tr.lam)
+        upd = ppo_update(ac_u, tr, pi_u, vf_u,
+                         AgentData(obs_self=b["obs_self"], obs_nbr=b["obs_nbr"],
+                                   obs_mask=b["obs_mask"], act=b["act"], adv=adv, ret=ret,
+                                   logp=b["logp"], val=b["val"]),
+                         torch.Generator().manual_seed(tr.seed))
+        one_update = {"pi_loss": upd.pi_loss.tolist(), "v_loss": upd.v_loss.tolist(),
+                      "kl": upd.kl.tolist(), "pi_iters": upd.pi_iters.tolist()}
+        param_err = max((params[k].double() - v.double().cpu()).abs().max().item()
+                        for k, v in ac_u.state_dict().items())
+        epoch_param_err = max((params[k].double() - v.double()).abs().max().item()
+                              for k, v in dp_one["params"].items())
+        if param_err > DP_PARAM_TOL:
+            problems.append(f"final params differ from the one-process update on the same "
+                            f"batch by {param_err} > {DP_PARAM_TOL}")
+        if one_update["pi_iters"] != ranks[0]["metrics"]["pi_iters"]:
+            problems.append(f"pi iterations {ranks[0]['metrics']['pi_iters']} against "
+                            f"{one_update['pi_iters']} in one process")
+        if len(jsonl) != 1 or len(results) != 1 or ckpts != ["0", "config.json"]:
+            problems.append(f"rank-0 artifacts: {len(jsonl)} train.jsonl lines, "
+                            f"{len(results)} results lines, ckpt {ckpts}")
+        if sum("mesh: {'data': 1, 'model': 2}" in log for log in logs) != 1:
+            problems.append("'mesh: ...' printed by other than one rank")
+        launches_by_phase["tensor_parallel_epoch"] = sum(g["launches"] for g in ranks)
+        lanes_rows = run_cfg.train.num_envs * run_cfg.env.num_drones
+        at_rows = {f"rank{r}": kernel_at_kept_rows(mg, g["kernel_inputs"], want=(lanes_rows,))
+                   for r, g in enumerate(ranks)}
+        summary = {"ranks": DP_RANKS, "mesh": {"data": 1, "model": DP_RANKS},
+                   "backend": ranks[0]["backend"], "lanes": run_cfg.train.num_envs,
+                   "lanes_per_rank": ranks[0]["lanes"], "drones": run_cfg.env.num_drones,
+                   "cuts": {"steps_per_epoch": [run_cfg.train.steps_per_epoch, CUT_T],
+                            "train_pi_iters": [run_cfg.train.train_pi_iters, CUT_ITERS],
+                            "train_v_iters": [run_cfg.train.train_v_iters, CUT_ITERS]},
+                   "epoch_time_s": {"one_process": one["epoch_time_s"],
+                                    **{f"rank{r}": g["epoch_time_s"]
+                                       for r, g in enumerate(ranks)}},
+                   "rollout_first_action_difference_step": first_diff,
+                   "rollout_max_abs_diff": rollout,
+                   "final_params_max_abs_diff_same_batch": param_err,
+                   "final_params_max_abs_diff_one_process_epoch": epoch_param_err,
+                   "param_tol": DP_PARAM_TOL, "metric_tol": DP_METRIC_TOL,
+                   "metrics": {"one_process": {k: one["metrics"][k] for k in DP_KEYS},
+                               **{f"rank{r}": {k: g["metrics"][k] for k in DP_KEYS}
+                                  for r, g in enumerate(ranks)},
+                               "one_process_update_on_rank_batch": one_update},
+                   "gru_launches": {"one_process": dp_one["launches"],
+                                    **{f"rank{r}": g["launches"]
+                                       for r, g in enumerate(ranks)},
+                                    "epoch_only": {f"rank{r}": g["epoch_launches"]
+                                                   for r, g in enumerate(ranks)}},
+                   "kernel_at_path_rows": at_rows, "atol": ATOL, "results": results,
+                   "card": smi}
+        if problems:
+            raise AssertionError(f"{problems}: {summary}")
+        return summary
+    run_phase("tensor_parallel_epoch", tensor_parallel_epoch)
     launches = sum(launches_by_phase.values())
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "card": smi})

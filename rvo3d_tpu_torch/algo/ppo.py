@@ -26,6 +26,7 @@ import torch
 
 from rvo3d_tpu_torch.config import TrainConfig
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.parallel.tensor_parallel import global_sq_norm
 
 
 class PPOState(NamedTuple):
@@ -90,10 +91,12 @@ def make_optimizers(cfg: TrainConfig, ac: ActorCritic
 
 def clip_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place on the parameters' .grad:
-    g * max_norm / |g| where |g| >= max_norm, over these parameters only.
-    Returns |g|."""
-    grads = [p.grad for p in params if p.grad is not None]
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    g * max_norm / |g| where |g| >= max_norm, over these parameters only
+    (whole: a tensor-parallel shard's squares are summed over its model
+    row). Returns |g|."""
+    held = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in held]
+    g_norm = torch.sqrt(global_sq_norm(grads, held))
     keep = g_norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))

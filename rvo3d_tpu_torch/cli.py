@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: train and eval
-(counterpart of rvo3d_tpu/cli.py).
+"""Command-line entry points of the port: train, eval, worldgen, render and
+parity (counterpart of rvo3d_tpu/cli.py).
 
     python -m rvo3d_tpu_torch.cli train --world world32_mix \\
         --multi_worlds world32_mix,world32_mix:rev --num_envs 64 ...
@@ -10,16 +10,21 @@
         --curriculum 1.2:80,0.8:80,0.4:rest ...
     python -m rvo3d_tpu_torch.cli eval --world world16_dense \
         --torch_checkpoint policy.pt --rnn_mode biGRU
+    python -m rvo3d_tpu_torch.cli worldgen --name w16 --drones 16 \
+        --map_size 24 24 8 --out worlds_data
+    python -m rvo3d_tpu_torch.cli render --world world16_dense \
+        --checkpoint <run_dir> --out render_out
+    python -m rvo3d_tpu_torch.cli parity --x64 --device cuda
 
 A run directory gets the full config as JSON, train.jsonl, checkpoints
 under ckpt/ (<epoch>/state.pt), results.txt (one line per evaluated
 population, in the JAX CLI's format) and best_checkpoint.json. Both
-commands run on `--device` (default cuda; without a card they raise).
-`train` runs data-parallel over its lanes when started as several
-processes with the RVO3D_* variables (parallel/multihost.py) and
-`--mesh_data <world size>` or `--auto_mesh`; rank 0 alone writes the run
-directory. Flags and commands that are not ported yet raise, naming their
-ROADMAP item.
+commands, render and parity run on `--device` (default cuda; without a
+card they raise). `train` runs over a (data, model) mesh when started as
+several processes with the RVO3D_* variables (parallel/multihost.py):
+`--mesh_data D --mesh_model M` with D*M processes (data-parallel lanes,
+tensor-parallel weights), or `--auto_mesh`; rank 0 alone writes the run
+directory. `bench` is not ported yet and raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,10 +34,8 @@ import json
 import os
 import sys
 
-# flag -> (its default, the ROADMAP item of the port that will bring it)
-NOT_PORTED = {"render_every": (0, "A15"), "mesh_model": (1, "A18")}
-COMMANDS_NOT_PORTED = {"worldgen": "A15", "render": "A15", "parity": "A15",
-                       "bench": "A17"}
+# command -> the ROADMAP item of the port that will bring it
+COMMANDS_NOT_PORTED = {"bench": "A17"}
 
 
 def _eval_suffix(m: dict) -> str:
@@ -52,11 +55,58 @@ def _fresh_run_dir(root: str, tag: str) -> str:
     return path
 
 
-def _refuse_unported(args) -> None:
-    for flag, (default, item) in NOT_PORTED.items():
-        if getattr(args, flag, default) != default:
-            raise SystemExit(f"--{flag} is not ported to rvo3d_tpu_torch yet "
-                             f"(ROADMAP {item})")
+def _policy_controller(ac, env_p, action_mode="increment", acceler_vel=1.0,
+                       std_factor=1e-3, seed=0, randn=None):
+    """controller(state, world) -> absolute action for the render paths,
+    with the training and evaluation mapping ('increment' = acceler*a + vel,
+    post_train.py:72-74; 'direct' = the raw command). The sampling noise
+    comes from `randn(shape)` (standard normals), by default a CPU generator
+    seeded from `seed`, so a card and a CPU run draw the same numbers."""
+    import torch
+
+    from rvo3d_tpu_torch.env import geometry as geo
+    from rvo3d_tpu_torch.env.env import observe
+
+    if randn is None:
+        gen = torch.Generator().manual_seed(seed)
+
+        def randn(shape):
+            return torch.randn(shape, generator=gen)
+
+    def controller(state, world):
+        out, _ = observe(world, state, env_p)
+        eps = randn(tuple(out.obs_self.shape[:-1]) + (ac.act_dim,)).to(out.obs_self.device)
+        ps = ac.step(out.obs_self, out.obs_nbr, out.obs_mask, std_factor, eps=eps)
+        a = geo.rnd(ps.action, 2)
+        if action_mode == "direct":
+            return a
+        return acceler_vel * a + state.vel
+
+    return controller
+
+
+def _dump_training_gif(ac, wd, cfg, media_dir: str, epoch: int, device,
+                       steps: int = 60) -> str:
+    """Record one episode of the current policy and write
+    media_dir/epoch_{N}.gif (+ its frames under media_dir/epoch_{N}/)."""
+    import dataclasses
+
+    from rvo3d_tpu_torch.env import DroneEnv
+    from rvo3d_tpu_torch.render import ScenePlotter, frames_to_gif, record_trajectory
+
+    env_p = dataclasses.replace(cfg.env, noise=False)
+    env = DroneEnv(wd.spec(device=device), env_p)
+    controller = _policy_controller(ac, env_p, action_mode=cfg.train.action_mode)
+    traj = record_trajectory(env, controller, steps=steps)
+    frame_dir = os.path.join(media_dir, f"epoch_{epoch}")
+    os.makedirs(frame_dir, exist_ok=True)
+    plotter = ScenePlotter(wd.map_size, wd.building_list, wd.waypoints_list)
+    try:
+        frames = plotter.render_trajectory(traj, frame_dir, every=2)
+        gif = frames_to_gif(frames, os.path.join(media_dir, f"epoch_{epoch}.gif"))
+    finally:
+        plotter.close()
+    return gif
 
 
 def _results_line(path: str, line: str) -> None:
@@ -109,9 +159,10 @@ def _build_cfg(args):
 
 
 def _mesh_from_args(cfg, args):
-    """The data-parallel mesh the flags ask for (None for one process), as
-    the JAX CLI decides it: --mesh_data N (N = the world size), or
-    --auto_mesh when several processes run."""
+    """The (data, model) mesh the flags ask for (None for one process), as
+    the JAX CLI decides it: --mesh_data D --mesh_model M (D*M = the world
+    size; D defaults to world size / M), or --auto_mesh when several
+    processes run."""
     import torch.distributed as dist
 
     from rvo3d_tpu_torch.parallel import make_mesh
@@ -153,6 +204,7 @@ def cmd_train(args) -> int:
     from rvo3d_tpu_torch.config import to_dict
     from rvo3d_tpu_torch.parallel import distributed_init_from_env, is_coordinator, replicate
     from rvo3d_tpu_torch.parallel.multihost import rank_device
+    from rvo3d_tpu_torch.parallel.tensor_parallel import full_policy, shard_params_tp
     from rvo3d_tpu_torch.utils.checkpoint import (BestCheckpoint, restore_checkpoint,
                                                   save_checkpoint)
     from rvo3d_tpu_torch.utils.device import resolve_device
@@ -160,7 +212,6 @@ def cmd_train(args) -> int:
                                                write_reward_csv)
     from rvo3d_tpu_torch.worlds.multi import stack_worlds, worlds_for_lanes
 
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     distributed_init_from_env(dev)
     dev = rank_device(dev)
@@ -178,6 +229,10 @@ def cmd_train(args) -> int:
         raise SystemExit("--curriculum and --multi_worlds are not combinable (the "
                          "curriculum path rebuilds the trainer per stage on the "
                          "single world)")
+    if args.curriculum and args.mesh_model > 1:
+        raise SystemExit("--curriculum and --mesh_model > 1 are not combinable in "
+                         "rvo3d_tpu_torch (the curriculum's per-stage trainers and "
+                         "evaluations run unsharded)")
     mesh = _mesh_from_args(cfg, args)
     lead = is_coordinator()
     run_dir = _shared_run_dir(args, f"r{wd.drone_num}", mesh)
@@ -187,7 +242,7 @@ def cmd_train(args) -> int:
             json.dump(to_dict(cfg), f, indent=2)
         print(f"run dir: {run_dir}")
         if mesh is not None:
-            print(f"mesh: {{'data': {mesh.data}, 'model': 1}}")
+            print(f"mesh: {{'data': {mesh.data}, 'model': {mesh.model}}}")
 
     # multi-scenario training: lane e steps scenario e % K; every scenario
     # shares --world's drone count; 'name:rev' = route-reversed variant
@@ -251,9 +306,10 @@ def cmd_train(args) -> int:
                   f"(dagger={args.bc_dagger}, noise={args.bc_noise}, "
                   f"margin={args.bc_margin}, "
                   f"cw={args.bc_conflict_weight}), final loss {bc_loss:.4f}")
-    if mesh is not None:   # every rank starts from rank 0's state
-        for obj in trainer.ppo_state:
+    if mesh is not None:   # every rank starts from rank 0's state, then
+        for obj in trainer.ppo_state:      # keeps its model shard of it
             replicate(obj, mesh)
+        shard_params_tp(trainer.ppo_state, mesh)
 
     logger = JSONLLogger(os.path.join(run_dir, "train.jsonl"), echo=not args.quiet) \
         if lead else None
@@ -324,14 +380,19 @@ def cmd_train(args) -> int:
     else:
         # every persisted checkpoint is scored (plus the --eval_every
         # cadence); a multi-scenario run writes one results.txt line per
-        # population
+        # population. Every rank calls these three: under tensor
+        # parallelism the shards are gathered (full_policy, save_checkpoint)
+        # and rank 0 evaluates, renders and writes.
         best = BestCheckpoint(run_dir) if lead else None
 
         def eval_fn(epoch, state, saved=True):
+            ac = full_policy(trainer.ac)
+            if not lead:
+                return
             targets = lane_specs or [(None, trainer.world)]
             min_success = 2.0
             for tok, sp in targets:
-                m = evaluate(trainer.ac, sp, cfg.env,
+                m = evaluate(ac, sp, cfg.env,
                              generator=torch.Generator(device=dev).manual_seed(epoch),
                              **eval_kw)
                 tag = f" [{tok}]" if tok is not None else ""
@@ -346,9 +407,29 @@ def cmd_train(args) -> int:
         def save(epoch, state):
             save_checkpoint(ckpt_dir, epoch, state, cfg)
 
-        trainer.train(epochs=args.train_epoch, log_fn=logger.log if lead else _quiet,
-                      checkpoint_fn=save if lead else None,
-                      eval_fn=eval_fn if lead else None, eval_every=args.eval_every)
+        def log_fn(m):
+            if lead:
+                logger.log(m)
+            # --render_every K: every K epochs one episode of the current
+            # policy is recorded and rendered to media/epoch_K.gif. As in
+            # the JAX CLI this is best effort: a render failure (e.g. no
+            # matplotlib) is printed and the run goes on.
+            ep = m.get("epoch")
+            if not (args.render_every and ep is not None and "halted" not in m
+                    and ep % args.render_every == 0):
+                return
+            ac = full_policy(trainer.ac)
+            if not lead:
+                return
+            try:
+                gif = _dump_training_gif(ac, wd, cfg, os.path.join(run_dir, "media"),
+                                         ep, dev)
+                print(f"render_every: epoch {ep} -> {gif}")
+            except Exception as exc:  # noqa: BLE001 - rendering is best-effort
+                print(f"render_every: epoch {ep} render failed: {exc!r}")
+
+        trainer.train(epochs=args.train_epoch, log_fn=log_fn, checkpoint_fn=save,
+                      eval_fn=eval_fn, eval_every=args.eval_every)
     if lead:
         write_reward_csv(os.path.join(run_dir, "reward_curves.csv"), logger.read())
         plot_reward_curves(os.path.join(run_dir, "train.jsonl"),
@@ -371,7 +452,6 @@ def cmd_eval(args) -> int:
     from rvo3d_tpu_torch.utils.device import resolve_device
     from rvo3d_tpu_torch.worlds import load_world
 
-    _refuse_unported(args)
     if not (args.checkpoint or args.torch_checkpoint):
         raise SystemExit("eval needs --checkpoint (a run dir, its ckpt/, or a "
                          "PolicyServer.save file) or --torch_checkpoint (a "
@@ -419,6 +499,83 @@ def cmd_eval(args) -> int:
         with open(args.results_file, "a") as f:
             f.write(line + "\n")
     return 0
+
+
+def cmd_worldgen(args) -> int:
+    from rvo3d_tpu_torch.worlds.gen import generate_world, native
+
+    wd = generate_world(args.name, num_drones=args.drones,
+                        map_size=tuple(args.map_size), seed=args.seed,
+                        k_sigma=args.k_sigma, n_low=args.n_low)
+    out = os.path.join(args.out, args.name)
+    wd.save(out)
+    planner = ("native" if native.native_available()
+               else f"python ({native.UNAVAILABLE})")
+    print(f"world '{args.name}' -> {out}: {wd.drone_num} drones, "
+          f"{len(wd.building_list)} buildings, "
+          f"routes {[len(w) for w in wd.waypoints_list]} waypoints, "
+          f"planner {planner}")
+    return 0
+
+
+def cmd_render(args) -> int:
+    from rvo3d_tpu_torch.config import EnvParams, ModelConfig
+    from rvo3d_tpu_torch.env import DroneEnv
+    from rvo3d_tpu_torch.render import (ScenePlotter, frames_to_gif, frames_to_mp4,
+                                        record_trajectory)
+    from rvo3d_tpu_torch.utils.device import resolve_device
+    from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
+    from rvo3d_tpu_torch.worlds import load_world
+
+    dev = resolve_device(args.device)
+    wd = load_world(args.world)
+    env = DroneEnv(wd.spec(device=dev), EnvParams(num_drones=wd.drone_num))
+
+    if args.torch_checkpoint or args.checkpoint:
+        from rvo3d_tpu_torch.models import ActorCritic
+        from rvo3d_tpu_torch.serving import PolicyServer
+
+        action_mode = "increment"
+        if args.torch_checkpoint:
+            from rvo3d_tpu_torch.utils.torch_import import load_reference_policy
+
+            ac = ActorCritic(ModelConfig(), device=dev)
+            ac.load_state_dict(load_reference_policy(args.torch_checkpoint))
+        elif args.checkpoint.endswith(".pt"):
+            ac = PolicyServer.from_checkpoint(args.checkpoint, device=dev).ac
+        else:
+            server = PolicyServer.from_torch(args.checkpoint, args.ckpt_epoch, device=dev)
+            print(f"rendering checkpoint epoch {server.epoch}")
+            # a 'direct'-mode checkpoint flown through the increment mapping
+            # flies garbage: match the training mapping
+            ac, action_mode = server.ac, server.config.train.action_mode
+        controller = _policy_controller(ac, env.params, action_mode=action_mode,
+                                        acceler_vel=args.acceler_vel)
+    else:
+        controller = waypoint_controller
+
+    traj = record_trajectory(env, controller, steps=args.steps)
+    plotter = ScenePlotter(wd.map_size, wd.building_list, wd.waypoints_list)
+    try:
+        frames = plotter.render_trajectory(traj, args.out, every=args.every,
+                                           draw_cones=args.cones)
+    finally:
+        plotter.close()
+    gif = frames_to_gif(frames, os.path.join(args.out, "episode.gif"))
+    mp4 = None if args.no_mp4 else frames_to_mp4(frames,
+                                                 os.path.join(args.out, "episode.mp4"))
+    print(f"{len(frames)} frames -> {args.out}"
+          + (f", gif: {gif}" if gif else "")
+          + (f", mp4: {mp4}" if mp4 else ""))
+    return 0
+
+
+def cmd_parity(args) -> int:
+    from rvo3d_tpu_torch.parity import run_parity
+
+    return run_parity(worlds=args.worlds, steps=args.steps, x64=args.x64,
+                      seed=args.seed, env_train=not args.eval_mode,
+                      noise=args.noise, device=args.device)
 
 
 def main(argv=None) -> int:
@@ -487,7 +644,10 @@ def main(argv=None) -> int:
                    help="exclude the shared encoder from the vf optimizer")
     t.add_argument("--freeze_encoder", action="store_true",
                    help="exclude the encoder from both optimizers")
-    t.add_argument("--render_every", type=int, default=0, help="not ported (A15)")
+    t.add_argument("--render_every", type=int, default=0,
+                   help="every K epochs, record one episode of the current policy "
+                        "and write media/epoch_K.gif in the run dir (needs "
+                        "matplotlib; a failed render is printed; 0 = off)")
     t.add_argument("--train_noise", action="store_true",
                    help="control noise in the training rollouts")
     t.add_argument("--train_control_std", type=float, default=0.06)
@@ -509,9 +669,10 @@ def main(argv=None) -> int:
     t.add_argument("--mesh_data", type=int, default=1,
                    help="data-parallel ranks over the lanes (= the process count)")
     t.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor parallelism: only 1 (ROADMAP A18)")
+                   help="tensor-parallel ranks over the MLP and recurrent weights "
+                        "(the mesh has mesh_data x mesh_model processes)")
     t.add_argument("--auto_mesh", action="store_true",
-                   help="data-parallel over every process that joined")
+                   help="a mesh over every process that joined")
     t.add_argument("--quiet", action="store_true")
     t.add_argument("--eval_every", type=int, default=0)
     t.add_argument("--curriculum", default=None,
@@ -545,6 +706,52 @@ def main(argv=None) -> int:
     e.add_argument("--action_mode", default="increment",
                    choices=["increment", "direct"])
     e.set_defaults(fn=cmd_eval)
+
+    w = sub.add_parser("worldgen", help="generate a world")
+    w.add_argument("--name", required=True)
+    w.add_argument("--drones", type=int, default=4)
+    w.add_argument("--map_size", type=int, nargs=3, default=[12, 12, 6])
+    w.add_argument("--seed", type=int, default=0)
+    w.add_argument("--k_sigma", type=float, default=2.0)
+    w.add_argument("--n_low", type=int, default=1)
+    w.add_argument("--out", default="worlds_data")
+    w.set_defaults(fn=cmd_worldgen)
+
+    r = sub.add_parser("render", help="render an episode to frames + gif + mp4")
+    r.add_argument("--device", default="cuda")
+    r.add_argument("--world", default="world_3")
+    r.add_argument("--checkpoint", default=None,
+                   help="run dir with ckpt/, or a PolicyServer.save .pt file")
+    r.add_argument("--torch_checkpoint", default=None,
+                   help="a reference biGRU policy's state dict")
+    r.add_argument("--ckpt_epoch", type=int, default=None,
+                   help="checkpoint epoch to render (default: latest)")
+    r.add_argument("--acceler_vel", type=float, default=1.0)
+    r.add_argument("--steps", type=int, default=100)
+    r.add_argument("--every", type=int, default=2)
+    r.add_argument("--out", default="render_out")
+    r.add_argument("--cones", action="store_true",
+                   help="overlay the live VO cones decoded from the observations")
+    r.add_argument("--no_mp4", action="store_true")
+    r.set_defaults(fn=cmd_render)
+
+    pa = sub.add_parser("parity", help="fixed-seed parity check vs the oracle")
+    pa.add_argument("--device", default="cuda", help="where the env steps")
+    pa.add_argument("--worlds", nargs="+",
+                    default=["gen_demo", "world16_dense", "world32_mix"],
+                    help="world names or paths; the default is the worlds in "
+                         "worlds_data/ (the JAX CLI's default world_2..world_8 "
+                         "live in the reference fixtures, not in this repo)")
+    pa.add_argument("--steps", type=int, default=200)
+    pa.add_argument("--seed", type=int, default=7)
+    pa.add_argument("--x64", action="store_true",
+                    help="float64 env, held to 1e-12")
+    pa.add_argument("--eval_mode", action="store_true",
+                    help="env_train=False: the eval-time exp_radius collision "
+                         "branch (rvo_inter.py:139-150)")
+    pa.add_argument("--noise", action="store_true",
+                    help="the same control-noise samples in both implementations")
+    pa.set_defaults(fn=cmd_parity)
 
     for name, item in COMMANDS_NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported (ROADMAP {item})")

@@ -25,6 +25,7 @@ from torch import nn
 
 from rvo3d_tpu_torch.config import ModelConfig
 from rvo3d_tpu_torch.models.encoder import NeighborEncoder
+from rvo3d_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 from rvo3d_tpu_torch.utils.device import resolve_device
 
 LOG_2PI = 1.8378770664093453
@@ -44,7 +45,12 @@ class TorchDense(nn.Linear):
 
 
 class MLP(nn.Module):
-    """ReLU-hidden MLP with an identity or tanh output."""
+    """ReLU-hidden MLP with an identity or tanh output. Under tensor
+    parallelism (`tp`, set by parallel/tensor_parallel.shard_params_tp)
+    layer 0 holds this rank's output columns and layer 1 the matching
+    input rows (Megatron column -> row)."""
+
+    tp = None   # the ModelAxis of a sharded MLP
 
     def __init__(self, in_dim: int, sizes: Sequence[int],
                  output_activation: str = "identity",
@@ -64,7 +70,13 @@ class MLP(nn.Module):
         x = x.to(cdt)
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
-            x = F.linear(x, layer.weight.to(cdt), layer.bias.to(cdt))
+            w, b = layer.weight.to(cdt), layer.bias.to(cdt)
+            if self.tp is not None and i == 0:
+                x = F.linear(copy_to_model(x, self.tp), w, b)
+            elif self.tp is not None and i == 1:
+                x = reduce_from_model(F.linear(x, w), self.tp) + b
+            else:
+                x = F.linear(x, w, b)
             if i < last:
                 x = torch.relu(x)
             elif self.output_activation == "tanh":

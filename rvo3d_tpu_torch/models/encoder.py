@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from rvo3d_tpu_torch.ops.masked_gru import masked_bigru_scan, masked_gru_scan
+from rvo3d_tpu_torch.parallel.tensor_parallel import gather_from_model
 
 
 class GRUCore(nn.Module):
@@ -48,9 +49,11 @@ class GRUCore(nn.Module):
                 p.uniform_(-bound, bound, generator=generator)
 
     def weights(self, dtype: torch.dtype = torch.float32):
-        """The four weights rounded to `dtype`, as float32 (the scan's
-        operand type); the parameters themselves when nothing rounds."""
-        return tuple(w.to(dtype).to(torch.float32)
+        """The four weights, whole (gathered over the model axis where
+        tensor parallelism shards them), rounded to `dtype`, as float32
+        (the scan's operand type); the parameters themselves when nothing
+        gathers or rounds."""
+        return tuple(gather_from_model(w).to(dtype).to(torch.float32)
                      for w in (self.w_ih, self.w_hh, self.b_ih, self.b_hh))
 
     def forward(self, xs: torch.Tensor, mask: torch.Tensor,
@@ -78,7 +81,7 @@ class LSTMCore(nn.Module):
     def forward(self, xs: torch.Tensor, mask: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """xs [S, B, IN], mask [S, B] float -> [B, H], all in `dtype`."""
-        w_ih, w_hh, b_ih, b_hh = (w.to(dtype) for w in
+        w_ih, w_hh, b_ih, b_hh = (gather_from_model(w).to(dtype) for w in
                                   (self.w_ih, self.w_hh, self.b_ih, self.b_hh))
         xs = xs.to(dtype)
         h = xs.new_zeros(xs.shape[1:-1] + (self.hidden_dim,))

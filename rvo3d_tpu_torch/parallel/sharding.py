@@ -1,11 +1,13 @@
-"""Placement over the data-parallel mesh (counterpart of
-rvo3d_tpu/parallel/sharding.py).
+"""Placement over the mesh's data axis (counterpart of
+rvo3d_tpu/parallel/sharding.py; the model axis is
+parallel/tensor_parallel.py).
 
-The env-lane axis E is the scaling axis: each rank keeps its lanes of the
-rollout carry and of a lane world, draws every random number at the
-global [E, ...] shape and keeps its lanes of it, and the rollout buffers
-are gathered so that every rank runs the same PPO update on the full
-batch. Parameters and optimizer states stay replicated.
+The env-lane axis E is the scaling axis: each rank keeps its data row's
+lanes of the rollout carry and of a lane world, draws every random number
+at the global [E, ...] shape and keeps its lanes of it, and the rollout
+buffers are gathered over the data axis so that every rank runs the same
+PPO update on the full batch. Parameters and optimizer states are
+replicated over the data axis.
 
 Collectives use only `all_reduce` and `broadcast`, which gloo takes for
 CPU and CUDA tensors and NCCL for CUDA tensors: a gather is the sum of a
@@ -55,27 +57,35 @@ class LaneDraws(NamedTuple):
 
 
 def gather_lanes(t: torch.Tensor, mesh: Mesh, axis: int = 0) -> torch.Tensor:
-    """The concatenation over ranks, in rank order, of every rank's `t`
-    along `axis` (equal shards)."""
+    """The concatenation over the data axis, in data-rank order, of every
+    rank's `t` along `axis` (equal shards)."""
     if mesh.data == 1:
         return t
+    return gather_shards(t, mesh.data, mesh.data_rank, mesh.data_group, axis)
+
+
+def gather_shards(t: torch.Tensor, size: int, rank: int, group, axis: int = 0
+                  ) -> torch.Tensor:
+    """The concatenation along `axis`, in rank order, of `t` from each of
+    the `size` ranks of `group` (this one is `rank`): the sum of a
+    zero-filled buffer into which each rank writes its own block."""
     n = t.shape[axis]
     shape = list(t.shape)
-    shape[axis] = n * mesh.data
+    shape[axis] = n * size
     wire = torch.uint8 if t.dtype == torch.bool else t.dtype
     buf = torch.zeros(shape, dtype=wire, device=t.device)
-    buf.narrow(axis, mesh.rank * n, n).copy_(t)
-    dist.all_reduce(buf)
+    buf.narrow(axis, rank * n, n).copy_(t)
+    dist.all_reduce(buf, group=group)
     return buf.to(t.dtype)
 
 
 def reduce_lanes(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
-    """The elementwise sum, min or max of `t` over ranks."""
+    """The elementwise sum, min or max of `t` over the data axis."""
     if mesh.data == 1:
         return t
     out = t.clone()
     dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
-                             "max": dist.ReduceOp.MAX}[op])
+                             "max": dist.ReduceOp.MAX}[op], group=mesh.data_group)
     return out
 
 
@@ -91,8 +101,10 @@ def _broadcast_(t: torch.Tensor) -> None:
 @torch.no_grad()
 def replicate(obj, mesh: Mesh):
     """Overwrite a module's parameters and buffers, or an optimizer's
-    state tensors, with rank 0's, in place; returns `obj`."""
-    if mesh.data == 1:
+    state tensors, with rank 0's on every rank, in place; returns `obj`.
+    (Before parallel/tensor_parallel.shard_params_tp: it broadcasts whole
+    tensors.)"""
+    if mesh.size == 1:
         return obj
     if isinstance(obj, nn.Module):
         tensors = list(obj.parameters()) + list(obj.buffers())

@@ -10,7 +10,10 @@ rvo3d_tpu/utils/checkpoint.py, which writes Orbax):
 
 Every saved epoch is kept. Resume restores the parameters and both
 optimizer states, or the parameters alone (`params_only`, for a run whose
-optimizer masks differ from the checkpoint's).
+optimizer masks differ from the checkpoint's). Under tensor parallelism
+every rank calls save_checkpoint: the shards of the parameters and of their
+Adam moments are gathered, and rank 0 writes them in the one-process
+format, so the checkpoint loads into an unsharded ActorCritic.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import torch
 
 from rvo3d_tpu_torch.algo.ppo import PPOState
 from rvo3d_tpu_torch.config import Config, from_dict, to_dict
+from rvo3d_tpu_torch.parallel.multihost import is_coordinator
+from rvo3d_tpu_torch.parallel.tensor_parallel import (full_optimizer_state_dict,
+                                                      full_state_dict)
 
 STATE_FILE = "state.pt"
 
@@ -46,15 +52,18 @@ def saved_epochs(directory: str) -> list:
 
 def save_checkpoint(directory: str, epoch: int, ppo_state: PPOState,
                     cfg: Config) -> str:
-    """Write <directory>/<epoch>/state.pt and <directory>/config.json;
-    returns the state file's path."""
+    """Write <directory>/<epoch>/state.pt and <directory>/config.json on
+    the coordinator (every rank gathers its shards; see the module's
+    docstring); returns the state file's path."""
     step_dir = os.path.join(directory, str(int(epoch)))
-    os.makedirs(step_dir, exist_ok=True)
     path = os.path.join(step_dir, STATE_FILE)
     payload = {"epoch": int(epoch),
-               "params": _cpu(ppo_state.ac.state_dict()),
-               "pi_opt": _cpu(ppo_state.pi_opt.state_dict()),
-               "vf_opt": _cpu(ppo_state.vf_opt.state_dict())}
+               "params": _cpu(full_state_dict(ppo_state.ac)),
+               "pi_opt": _cpu(full_optimizer_state_dict(ppo_state.pi_opt)),
+               "vf_opt": _cpu(full_optimizer_state_dict(ppo_state.vf_opt))}
+    if not is_coordinator():
+        return path
+    os.makedirs(step_dir, exist_ok=True)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

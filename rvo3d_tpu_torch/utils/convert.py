@@ -92,6 +92,13 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": out}
 
 
+def flax_names(sd: Dict[str, torch.Tensor]) -> Dict[str, Tuple[str, bool]]:
+    """Port state_dict name -> (its path in the flax tree, 'params/...'
+    joined by '/', and whether the two layouts are transposed)."""
+    p = _root(state_dict_to_flax(sd))
+    return {name: ("/".join(("params",) + path), tr) for name, path, tr in _leaves(p)}
+
+
 def _is_masked(leaf) -> bool:
     """optax's MaskedNode is an empty NamedTuple."""
     return leaf is None or (isinstance(leaf, tuple) and len(leaf) == 0)

@@ -7,7 +7,9 @@ A world directory holds the reference's format:
   <world>/E3d.npy, E3d_safe.npy : occupancy grids (host-side planning only;
                                   the env step never reads them)
 
-Worlds resolve by path or by name under the repo's `worlds_data/`.
+`load_world` resolves a name through worlds/registry.py: registered
+names, then a directory path, then $RVO3D_WORLD_PATH, then the repo's
+`worlds_data/`.
 """
 
 from __future__ import annotations
@@ -22,10 +24,6 @@ import torch
 
 from rvo3d_tpu_torch.env.state import WorldSpec, make_world_spec
 
-WORLDS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "worlds_data")
-
 
 @dataclasses.dataclass
 class WorldData:
@@ -38,11 +36,15 @@ class WorldData:
     n_points_list: List[int]
     building_list: List[List[float]]
     base_dir: Optional[str] = None
+    # grids held in memory (a generated world's), written by save()
+    _e3d: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
+    _e3d_safe: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
 
     def e3d(self, safe: bool = False) -> Optional[np.ndarray]:
         """The occupancy grid (E3d.npy, or E3d_safe.npy), if present."""
-        if not self.base_dir:
-            return None
+        held = self._e3d_safe if safe else self._e3d
+        if held is not None or not self.base_dir:
+            return held
         path = os.path.join(self.base_dir, "E3d_safe.npy" if safe else "E3d.npy")
         return np.load(path) if os.path.exists(path) else None
 
@@ -55,6 +57,23 @@ class WorldData:
             radius=radius, priority=priority, vel_max=vel_max,
             pad_waypoints=pad_waypoints, pad_buildings=pad_buildings,
             dtype=dtype, device=device)
+
+    def save(self, out_dir: str) -> None:
+        """Write data_1.json, and the grids held in memory, to out_dir."""
+        os.makedirs(out_dir, exist_ok=True)
+        payload = {
+            "drone_num": self.drone_num,
+            "map_size": list(self.map_size),
+            "waypoints_list": self.waypoints_list,
+            "n_points_list": self.n_points_list,
+            "building_list": self.building_list,
+        }
+        with open(os.path.join(out_dir, "data_1.json"), "w") as f:
+            json.dump(payload, f)
+        if self._e3d is not None:
+            np.save(os.path.join(out_dir, "E3d.npy"), self._e3d)
+        if self._e3d_safe is not None:
+            np.save(os.path.join(out_dir, "E3d_safe.npy"), self._e3d_safe)
 
 
 def load_world_dir(base_dir: str, name: Optional[str] = None) -> WorldData:
@@ -72,10 +91,8 @@ def load_world_dir(base_dir: str, name: Optional[str] = None) -> WorldData:
 
 
 def load_world(name: str) -> WorldData:
-    """A world by directory path, or by name under worlds_data/."""
-    if os.path.exists(os.path.join(name, "data_1.json")):
-        return load_world_dir(name)
-    cand = os.path.join(WORLDS_DIR, name)
-    if os.path.exists(os.path.join(cand, "data_1.json")):
-        return load_world_dir(cand, name)
-    raise FileNotFoundError(f"world '{name}' not found as a path or under {WORLDS_DIR}")
+    """A world by registered name, directory path, or name under the
+    search paths (worlds/registry.py)."""
+    from rvo3d_tpu_torch.worlds.registry import resolve_world
+
+    return resolve_world(name)

@@ -108,11 +108,6 @@ def test_eval_reverse_line_matches_the_jax_format(runs):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--device", "cpu", "--world", "gen_demo", "--render_every", "2"], "A15"),
-    (["train", "--device", "cpu", "--world", "gen_demo", "--mesh_model", "2"], "A18"),
-    (["worldgen", "--name", "x"], "A15"),
-    (["render", "--world", "gen_demo"], "A15"),
-    (["parity"], "A15"),
     (["bench"], "A17"),
 ])
 def test_unported_flags_and_commands_raise_with_their_roadmap_item(argv, item):

@@ -102,3 +102,46 @@ def test_chip_smoke_alone_fails(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
                           text=True, timeout=120, cwd=tmp_path)
     _assert_refused(proc)
+
+
+OPTIONAL = {"matplotlib", "yaml", "imageio", "cv2"}
+OPTIONAL_BLOCKER = """
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {banned!r}:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, _Block())
+sys.path.insert(0, {repo!r})
+import torch
+import rvo3d_tpu_torch.render, rvo3d_tpu_torch.worlds.gen, rvo3d_tpu_torch.parity
+from rvo3d_tpu_torch.config import EnvParams
+from rvo3d_tpu_torch.env import DroneEnv
+from rvo3d_tpu_torch.render import frames_to_gif, frames_to_mp4, record_trajectory
+from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
+from rvo3d_tpu_torch.worlds import load_world
+wd = load_world("gen_demo")
+env = DroneEnv(wd.spec(device="cpu"), EnvParams(num_drones=wd.drone_num))
+traj = record_trajectory(env, waypoint_controller, steps=3)
+assert traj["pos"].shape == (3, wd.drone_num, 3)
+assert frames_to_gif([], "x.gif") is None and frames_to_mp4([], "x.mp4") is None
+try:
+    rvo3d_tpu_torch.render.ScenePlotter(wd.map_size, wd.building_list)
+except ImportError:
+    pass
+else:
+    raise AssertionError("ScenePlotter needs matplotlib")
+assert not any(m.split(".")[0] in {banned!r} for m in sys.modules)
+print("optional-ok")
+"""
+
+
+def test_render_and_worldgen_import_without_optional_libraries():
+    """The card machine has no matplotlib, PyYAML, imageio or cv2: the
+    render and worldgen modules import and record there, and only drawing
+    needs matplotlib."""
+    code = OPTIONAL_BLOCKER.format(banned=sorted(OPTIONAL | BANNED), repo=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "optional-ok" in proc.stdout

@@ -17,7 +17,8 @@ RVO3D_* variables, a free local port, each process with its own timeout):
     (atol 1e-3) of tests/test_sharding.py;
   - `cli train --mesh_data 2`: rank 0 alone writes the run directory, each
     line and checkpoint once;
-  - make_mesh in one process, and its refusals;
+  - make_mesh in one process, and its refusals (a model axis of 2 needs
+    processes; tensor parallelism itself is tests/test_torch_tensor_parallel.py);
   - the backend rule (gloo for a CPU run, whatever cards the host has;
     NCCL only for a CUDA run with a card per rank on each host) and the
     local rank that picks a rank's card.
@@ -141,7 +142,7 @@ def test_make_mesh_in_one_process():
     mesh = make_mesh()
     assert (mesh.data, mesh.rank) == (1, 0)
     assert mesh.lanes(6) == slice(0, 6)
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(ValueError, match="model=2 does not divide the 1 processes"):
         make_mesh(model=2)
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(data=2)
