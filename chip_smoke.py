@@ -74,6 +74,23 @@ drawn where matplotlib is absent, and the line says so) and
 two gloo ranks on this card running `cli train --mesh_model 2` on
 `data_parallel_epoch`'s config, held against its one-process epoch at the
 same tolerances).
+Then the bench command and the JAX side's throughput scripts, each through
+its entry point in rvo3d_tpu_torch/bench/ (the JSON each writes under
+runs_torch/bench/ goes into the phase's line): `bench_env` (`cli bench`
+in this process at bench.py's size, 16384 lanes x 100 steps x 3 repeats of
+the flagship world: its line, with finite positive rates and bench.py's
+keys plus `device`; the spread between the lanes of the last timed
+chunk's final state, reported; the timed loop at 4 lanes x 100 steps in
+float64 on the card against the CPU, 1e-12 and exact flags),
+`bench_ladder` (rungs 4 and 5 at full size; lane 1 of the rung-5 lane
+world, the flipped population, in float64 on the card against the CPU
+over 60 steps), `bench_detail` (the env sweep at 2048-16384 lanes, the
+biGRU-256 rollout at 2048 lanes x 30 steps, the flagship PPO epoch at 32
+lanes x 300 steps with the per-agent update; `cuts` lists any cut),
+`bench_serving` (PolicyServer.act at B = 1, 256, 4096 and 32768) and
+`bench_gru` (one kernel direction against the plain scan and cuDNN at
+B = 32768 and 131072, each beside its bound; max |kernel - plain| within
+1e-4 at both).
 Each of these phases that launches the masked GRU keeps the kernel's
 inputs at its first launch with each row count and holds the kernel to its
 plain version on them (`kernel_at_path_rows`, atol 1e-4); `bf16_serve` also
@@ -91,7 +108,9 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import math
 import os
 import socket
 import subprocess
@@ -171,6 +190,13 @@ RENDER_STEPS = 100
 RENDER_POS_TOL = 1e-4      # card vs CPU float32 positions over 100 steps
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROFILE_DIR = os.path.join(REPO, "chiprun_out", "profile_rollout_step")
+# `cli bench` at the JAX bench.py's defaults (bench.py:128-130), and its
+# line's keys (bench.py:140-148) beside the card's name
+BENCH_SIZE = {"RVO3D_BENCH_ENVS": "16384", "RVO3D_BENCH_STEPS": "100",
+              "RVO3D_BENCH_REPEATS": "3"}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "repeats", "min", "median",
+              "max", "device"}
+F64_ATOL = 1e-12           # float64 env on the card against the CPU
 
 
 def recipe_argv(run_dir):
@@ -233,14 +259,15 @@ def p50_ms(fn, iters=30, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
-def bigru_bound(xs, ms, fwd):
-    """The least time of one biGRU launch on these inputs: the products of
-    the active steps (both directions) at the 3xTF32 peak, or the bytes
-    read once (xs, mask, both directions' weights) and written once."""
+def gru_bound(xs, ms, fwd, ndirs=2):
+    """The least time of one launch on these inputs, of a biGRU (ndirs 2)
+    or one direction: the products of the active steps at the 3xTF32 peak,
+    or the bytes read once (xs, mask, each direction's weights) and
+    written once."""
     in_dim, hidden = xs.shape[-1], fwd[1].shape[0]
     active = float(ms.sum().item())
-    flops = 2 * 2.0 * active * (in_dim + hidden) * 3 * hidden
-    nbytes = 4.0 * (xs.numel() + ms.numel() + 2 * sum(t.numel() for t in fwd)
+    flops = 2.0 * ndirs * active * (in_dim + hidden) * 3 * hidden
+    nbytes = 4.0 * (xs.numel() + ms.numel() + ndirs * sum(t.numel() for t in fwd)
                     + xs.shape[1] * hidden)
     t_ops, t_bytes = flops / TF32X3_PEAK, nbytes / HBM_BYTES_S
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -320,6 +347,57 @@ def bf16_steps(ref):
 
     _, exp = torch.frexp(ref.float())
     return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
+
+
+def state_diff(a, b):
+    """Two DroneStates: (max |a - b| over the float leaves, the names of
+    the integer and flag leaves that differ)."""
+    import torch
+
+    worst, differ = 0.0, []
+    for name, x, y in zip(a._fields, a, b):
+        x, y = x.cpu(), y.cpu()
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                differ.append(name)
+        elif x.numel():
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst, differ
+
+
+def lane_spread(state):
+    """How far any lane of a DroneState is from lane 0: max |x - x[0]| over
+    the float leaves, and the count of integer and flag entries that
+    differ."""
+    worst, differ = 0.0, 0
+    for x in state:
+        if not x.numel():
+            continue
+        if x.is_floating_point():
+            worst = max(worst, (x - x[:1]).abs().max().item())
+        else:
+            differ += int((x != x[:1]).sum().item())
+    return {"max_abs": worst, "integer_and_flag_entries": differ}
+
+
+def quiet_main(main, argv):
+    """main(argv) with what it prints kept: (exit code, printed lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def bench_results(name):
+    """A bench script's JSON under runs_torch/bench/."""
+    from rvo3d_tpu_torch.bench import core
+
+    with open(os.path.join(core.OUT_DIR, name)) as f:
+        return json.load(f)
+
+
+def all_rates_ok(values):
+    return bool(values) and all(math.isfinite(v) and v > 0 for v in values)
 
 
 def dp_argv(run_dir, start_ckpt):
@@ -572,7 +650,7 @@ def main(argv=None) -> int:
             x_dense = xs.contiguous()
             with torch.no_grad():
                 row["cudnn_bigru_unmasked_ms"] = cuda_ms(lambda: gru(x_dense), iters)
-            row.update(bigru_bound(xs, ms, fwd))
+            row.update(gru_bound(xs, ms, fwd))
             row["share_of_bound"] = row["bound_ms"] / row["kernel_bigru_ms"]
             geo = mg.card_geometry(b, hidden, in_dim, 2)
             row["geometry"] = {"rows": geo.rows, "tiles": geo.tiles,
@@ -979,7 +1057,7 @@ def main(argv=None) -> int:
             gru = torch.nn.GRU(xs.shape[-1], enc.hidden_dim, bidirectional=True).to(dev)
             x_dense = xs.contiguous()
             timing["cudnn_bigru_unmasked_ms"] = cuda_ms(lambda: gru(x_dense), 20)
-        timing.update(bigru_bound(xs, ms, fwd))
+        timing.update(gru_bound(xs, ms, fwd))
         timing["active_slots_per_row"] = float(ms.sum() / ms.shape[1])
 
         # where an update iteration's time goes (kernel forward, plain backward)
@@ -1300,7 +1378,7 @@ def main(argv=None) -> int:
                        "plain_bigru_ms": cuda_ms(
                            lambda: mg.masked_bigru_scan_plain(xs, ms, fwd, bwd), 5),
                        "cudnn_bigru_unmasked_ms": cuda_ms(lambda: gru(x_dense), 20),
-                       **bigru_bound(xs, ms, fwd)}
+                       **gru_bound(xs, ms, fwd)}
                 mg.launches = l0
                 at_rows[label] = row
                 if not err <= ATOL:
@@ -1988,6 +2066,147 @@ def main(argv=None) -> int:
             raise AssertionError(f"{problems}: {summary}")
         return summary
     run_phase("tensor_parallel_epoch", tensor_parallel_epoch)
+
+    # ---- the bench command and the JAX side's throughput scripts ----
+    from rvo3d_tpu_torch import cli
+    from rvo3d_tpu_torch.bench import core as bench_core
+    from rvo3d_tpu_torch.bench import detail as bench_detail_mod
+    from rvo3d_tpu_torch.bench import gru as bench_gru_mod
+    from rvo3d_tpu_torch.bench import ladder as bench_ladder_mod
+    from rvo3d_tpu_torch.bench import serving as bench_serving_mod
+    from rvo3d_tpu_torch.bench.flagship import flagship_world
+    from rvo3d_tpu_torch.env.env import reset
+
+    def bench_env():
+        """`cli bench` in this process at bench.py's size: its line, the
+        spread between the lanes of the last timed chunk's final state (all
+        lanes fly one deterministic trajectory, so any spread is an op that
+        mixes lanes; reported, not gated), and the timed loop in float64 on
+        the card against the CPU."""
+        os.environ.update(BENCH_SIZE)
+        finals, real = [], bench_core.run_chunk
+
+        def run_chunk(*a):
+            finals.append(real(*a))
+            return finals[-1]
+        bench_core.run_chunk = run_chunk
+        mg.launches = 0
+        try:
+            rc, lines = quiet_main(cli.main, ["bench", "--device", "cuda"])
+        finally:
+            bench_core.run_chunk = real
+        launches_by_phase["bench_env"] = mg.launches
+        print(lines[-1], flush=True)
+        line = json.loads(lines[-1])
+        wd = flagship_world()
+        p8 = EnvParams(num_drones=wd["drone_num"])
+        runs = []
+        for d in (dev, "cpu"):
+            w = bench_core.world_spec(wd, d, torch.float64)
+            runs.append(bench_core.run_chunk(w, reset(w, p8, lead=(4,)), p8, 100))
+        err, differ = state_diff(*runs)
+        problems = []
+        if rc != 0 or set(line) != BENCH_KEYS:
+            problems.append(f"rc {rc}, keys {sorted(line)}")
+        if not all_rates_ok([line[k] for k in ("value", "min", "median", "max",
+                                                "vs_baseline")]):
+            problems.append("a rate is not finite and positive")
+        if err > F64_ATOL or differ:
+            problems.append(f"float64 card vs CPU: {err} > {F64_ATOL} or {differ} differ")
+        out = {"bench_line": line, "size": BENCH_SIZE, "timed_chunks": len(finals) - 1,
+               "lane_spread_of_final_state": lane_spread(finals[-1]),
+               "f64_card_vs_cpu": {"lanes": 4, "steps": 100, "max_abs_diff": err,
+                                   "atol": F64_ATOL, "differing_flags": differ},
+               "gru_launches": mg.launches, "card": smi}
+        if problems:
+            raise AssertionError(f"{problems}: {out}")
+        return out
+    run_phase("bench_env", bench_env)
+
+    def bench_ladder():
+        """Rungs 4 and 5 at full size, and lane 1 of the rung-5 world (the
+        flipped population) in float64 on the card against the CPU."""
+        mg.launches = 0
+        rc, _ = quiet_main(bench_ladder_mod.main, ["--device", "cuda"])
+        launches_by_phase["bench_ladder"] = mg.launches
+        res = bench_results("ladder_bench.json")
+        lane1 = []
+        for d in (dev, "cpu"):
+            lw = bench_ladder_mod.rung5_lane_worlds(2, d, torch.float64)
+            p32 = EnvParams(num_drones=lw.num_drones)
+            st = bench_core.run_chunk(lw, reset(lw, p32, (2,)), p32, bench_ladder_mod.STEPS)
+            lane1.append(type(st)(*[x[1] for x in st]))
+        err, differ = state_diff(*lane1)
+        rates = [v for k, v in res.items() if k.endswith("_per_sec")]
+        out = {"results": res, "lane1_f64_card_vs_cpu": {
+                   "steps": bench_ladder_mod.STEPS, "max_abs_diff": err, "atol": F64_ATOL,
+                   "differing_flags": differ},
+               "gru_launches": mg.launches, "card": smi}
+        if rc != 0 or len(rates) != 2 or not all_rates_ok(rates) or err > F64_ATOL or differ:
+            raise AssertionError(f"bench_ladder: {out}")
+        return out
+    run_phase("bench_ladder", bench_ladder)
+
+    def bench_detail():
+        """Sections 1-3 of the detail bench, and the kernel held to its
+        plain version at the rows the rollout and the PPO epoch gave it."""
+        keep = {}
+        mg.launches = 0
+        with kernel_inputs_kept(mg, keep):
+            rc, _ = quiet_main(bench_detail_mod.main, ["--device", "cuda"])
+        launches_by_phase["bench_detail"] = mg.launches
+        res = bench_results("bench_details.json")
+        at_rows = kernel_at_kept_rows(mg, keep, want=(2048 * 8, 32 * 8))
+        rates = [*res["env_only_steps_per_sec"].values(),
+                 res["rollout_policy_steps_per_sec_kernel"], res["ppo_env_steps_per_sec"]]
+        out = {"results": res, "kernel_at_path_rows": at_rows, "atol": ATOL, "cuts": {},
+               "gru_launches": mg.launches, "card": smi}
+        if rc != 0 or len(rates) != 6 or not all_rates_ok(rates):
+            raise AssertionError(f"bench_detail: {out}")
+        return out
+    run_phase("bench_detail", bench_detail)
+
+    def bench_serving():
+        """PolicyServer.act at the serving bench's four batches, and the
+        kernel held to its plain version at each batch's rows."""
+        keep = {}
+        mg.launches = 0
+        with kernel_inputs_kept(mg, keep):
+            rc, _ = quiet_main(bench_serving_mod.main, ["--device", "cuda"])
+        launches_by_phase["bench_serving"] = mg.launches
+        res = bench_results("serving_bench.json")
+        at_rows = kernel_at_kept_rows(mg, keep, want=bench_serving_mod.BATCHES)
+        rates = [r["actions_per_sec_kernel"] for r in res["batches"].values()]
+        out = {"results": res, "kernel_at_path_rows": at_rows, "atol": ATOL, "cuts": {},
+               "gru_launches": mg.launches, "card": smi}
+        if rc != 0 or len(rates) != len(bench_serving_mod.BATCHES) or not all_rates_ok(rates):
+            raise AssertionError(f"bench_serving: {out}")
+        return out
+    run_phase("bench_serving", bench_serving)
+
+    gru_rows = {}
+
+    def bench_gru():
+        """The GRU microbench at E = 4096 and 16384 (B = 32768 and 131072,
+        one direction), each row beside its bound; max |kernel - plain|
+        within ATOL at both."""
+        mg.launches = 0
+        rc, _ = quiet_main(bench_gru_mod.main, ["--device", "cuda"])
+        launches_by_phase["bench_gru"] = mg.launches
+        res = bench_results("gru_bench.json")
+        for e in bench_gru_mod.LANES:
+            row = res["shapes"][f"E{e}"]
+            xs, ms, w = bench_gru_mod.inputs(row["B"], dev)
+            row.update(gru_bound(xs, ms, w, ndirs=1))
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            gru_rows[str(row["B"])] = row
+        bad = {b: r["max_abs_err"] for b, r in gru_rows.items()
+               if not r["max_abs_err"] <= ATOL}
+        out = {"results": res, "atol": ATOL, "gru_launches": mg.launches, "card": smi}
+        if rc != 0 or len(gru_rows) != 2 or bad:
+            raise AssertionError(f"bench_gru: max |kernel - plain| {bad}: {out}")
+        return out
+    run_phase("bench_gru", bench_gru)
     launches = sum(launches_by_phase.values())
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "card": smi})
@@ -1995,12 +2214,18 @@ def main(argv=None) -> int:
         "name": "masked_gru", "route": "cuda",
         "source": "rvo3d_tpu_torch/csrc/masked_gru.cu",
         "replaces": "rvo3d_tpu/ops/pallas_gru.py:106",
-        "launches": launches, "max_abs_err": kstats["max_abs_err"],
+        "launches": launches,
+        "max_abs_err": max([kstats["max_abs_err"]]
+                           + [r["max_abs_err"] for r in gru_rows.values()]),
         "ms": kstats["ms"], "plain_ms": kstats["plain_ms"],
         "bound_ms": kstats["bound_ms"], "bound_by": kstats["bound_by"],
         "library_ms": kstats["library_ms"],
         "bound_ms_f32_simt": kstats["bound_ms_f32_simt"],
-        "launches_by_phase": launches_by_phase}]})
+        "launches_by_phase": launches_by_phase,
+        "one_direction_by_B": {b: {k: r[k] for k in ("kernel_ms", "plain_ms",
+                                                     "cudnn_gru_unmasked_ms", "bound_ms",
+                                                     "bound_by", "max_abs_err")}
+                               for b, r in gru_rows.items()}}]})
     if launches == 0:
         print("chip_smoke: the main path launched no masked GRU kernel", file=sys.stderr)
         return 1

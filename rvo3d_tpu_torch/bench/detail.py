@@ -1,0 +1,139 @@
+"""Detailed throughput of the port (its counterpart of
+scripts/bench_detail.py, sections 1-3):
+
+  1. env-only stepping (core.py's metric) at 2048, 4096, 8192 and 16384
+     lanes, 60 steps, 2 repeats
+  2. policy-in-the-loop rollout: a biGRU-256 policy sampling every step,
+     then `step` and the lifecycle reset, 2048 lanes x 30 steps
+  3. a full PPO epoch (rollout, GAE, update) of the flagship world at
+     TrainConfig(steps_per_epoch=300, num_envs=32), every other field at
+     its default: the per-agent update, 50 pi and 50 v iterations; the
+     second of two epochs is timed
+
+    python -m rvo3d_tpu_torch.bench.detail [--device cuda]
+
+Writes runs_torch/bench/bench_details.json. The JAX script's section 4
+needs the reference fixture world_2, which this repository does not hold.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict, Sequence
+
+import torch
+
+from rvo3d_tpu_torch.bench.core import (bench_env, best_seconds, device_name, sync,
+                                        world_spec, write_results)
+from rvo3d_tpu_torch.bench.flagship import flagship_world
+from rvo3d_tpu_torch.config import Config, EnvParams, ModelConfig, TrainConfig
+from rvo3d_tpu_torch.env import geometry as geo
+from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
+from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.utils.device import resolve_device
+
+SWEEP_LANES = (2048, 4096, 8192, 16384)
+SEED = 0             # the policy's weights; its draws come from SEED + 1
+# The JAX script times its rollout with use_pallas_gru off and on. On the
+# card the port has one path, the hand-written kernel, and no switch that
+# turns it off (ROADMAP rule 2), so it reports one rollout number.
+ROLLOUT_NOTE = ("one policy path: on the card the masked GRU runs the hand-written "
+                "kernel and nothing switches it off, so the JAX script's scan/pallas "
+                "pair is one number")
+
+
+def env_sweep(world_dict: dict, lanes: Sequence[int] = SWEEP_LANES, steps: int = 60,
+              repeats: int = 2, device="cuda") -> Dict[str, float]:
+    """Best env-steps/s at each lane count (bench_detail.py:55-60)."""
+    return {str(e): bench_env(world_dict, e, steps, repeats, device)[0] for e in lanes}
+
+
+@torch.no_grad()
+def rollout_chunk(ac: ActorCritic, world, state, p: EnvParams, steps: int,
+                  generator: torch.Generator):
+    """`steps` policy-in-the-loop steps (bench_detail.py:76-87): observe,
+    sample, round the action to 2 decimals, abs = rnd(acceler * a + vel, 2),
+    step, reset collided or finished drones."""
+    for _ in range(steps):
+        out, state = observe(world, state, p)
+        ps = ac.step(out.obs_self, out.obs_nbr, out.obs_mask, 1.0, generator)
+        a = geo.rnd(ps.action, 2)
+        abs_a = geo.rnd(p.acceler * a + state.vel, 2)
+        state, o = step(world, state, abs_a, p)
+        state = reset_where(world, state, o.done | o.finish)
+    return state
+
+
+def policy_rollout(world_dict: dict, num_envs: int = 2048, steps: int = 30,
+                   repeats: int = 3, device="cuda") -> float:
+    """Best env-steps/s of the rollout of a biGRU-256 policy drawn from
+    SEED: a warm-up chunk, then `repeats` chunks each from the same reset
+    state with the same draws (bench_detail.py:23-33, :89-90)."""
+    dev = resolve_device(device)
+    world = world_spec(world_dict, dev)
+    p = EnvParams(num_drones=world_dict["drone_num"])
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(SEED),
+                     device=dev)
+    state = reset(world, p, lead=(num_envs,))
+
+    def run():
+        return rollout_chunk(ac, world, state, p, steps,
+                             torch.Generator(device=dev).manual_seed(SEED + 1))
+    return num_envs * steps / best_seconds(run, dev, repeats)
+
+
+def ppo_epoch(world_dict: dict, steps_per_epoch: int = 300, num_envs: int = 32,
+              device="cuda") -> Dict[str, float]:
+    """Seconds and env-steps/s of the second of two Trainer epochs
+    (bench_detail.py:105-121); the first builds and warms everything."""
+    from rvo3d_tpu_torch.algo.trainer import Trainer
+
+    dev = resolve_device(device)
+    p = EnvParams(num_drones=world_dict["drone_num"])
+    cfg = Config(env=p, model=ModelConfig(),
+                 train=TrainConfig(steps_per_epoch=steps_per_epoch, num_envs=num_envs))
+    tr = Trainer(cfg, world_spec(world_dict, dev), device=dev)
+    tr.run_epoch()
+    sync(dev)
+    t0 = time.perf_counter()
+    m = tr.run_epoch()
+    sync(dev)
+    dt = time.perf_counter() - t0
+    return {"ppo_epoch_seconds": round(dt, 3),
+            "ppo_env_steps_per_sec": round(steps_per_epoch * num_envs / dt, 1),
+            "pi_iters": m["pi_iters"]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    dev = resolve_device(ap.parse_args(argv).device)
+    world_dict = flagship_world()
+    results = {"device": device_name(dev)}
+
+    sweep = env_sweep(world_dict, device=dev)
+    results["env_only_steps_per_sec"] = {e: round(r, 1) for e, r in sweep.items()}
+    for e, r in sweep.items():
+        print(f"env-only E={e}: {r:,.0f} env-steps/s", flush=True)
+
+    path = "kernel" if dev.type == "cuda" else "plain"
+    rate = policy_rollout(world_dict, device=dev)
+    results[f"rollout_policy_steps_per_sec_{path}"] = round(rate, 1)
+    results["rollout_policy_note"] = ROLLOUT_NOTE
+    print(f"policy rollout ({path}) E=2048: {rate:,.0f} env-steps/s", flush=True)
+
+    epoch = ppo_epoch(world_dict, device=dev)
+    results.update(epoch)
+    print(f"PPO epoch (E=32, T=300, 8 drones): {epoch['ppo_epoch_seconds']:.2f}s "
+          f"({epoch['ppo_env_steps_per_sec']:,.0f} env-steps/s incl. 8x(50pi+50v) "
+          "updates)", flush=True)
+
+    print(f"wrote {write_results(results, 'bench_details.json')}")
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

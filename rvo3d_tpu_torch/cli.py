@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: train, eval, worldgen, render and
-parity (counterpart of rvo3d_tpu/cli.py).
+"""Command-line entry points of the port: train, eval, worldgen, render,
+parity and bench (counterpart of rvo3d_tpu/cli.py).
 
     python -m rvo3d_tpu_torch.cli train --world world32_mix \\
         --multi_worlds world32_mix,world32_mix:rev --num_envs 64 ...
@@ -15,16 +15,18 @@ parity (counterpart of rvo3d_tpu/cli.py).
     python -m rvo3d_tpu_torch.cli render --world world16_dense \
         --checkpoint <run_dir> --out render_out
     python -m rvo3d_tpu_torch.cli parity --x64 --device cuda
+    python -m rvo3d_tpu_torch.cli bench --device cuda
 
 A run directory gets the full config as JSON, train.jsonl, checkpoints
 under ckpt/ (<epoch>/state.pt), results.txt (one line per evaluated
 population, in the JAX CLI's format) and best_checkpoint.json. Both
-commands, render and parity run on `--device` (default cuda; without a
-card they raise). `train` runs over a (data, model) mesh when started as
-several processes with the RVO3D_* variables (parallel/multihost.py):
+commands, render, parity and bench run on `--device` (default cuda;
+without a card they raise). `train` runs over a (data, model) mesh when
+started as several processes with the RVO3D_* variables (parallel/multihost.py):
 `--mesh_data D --mesh_model M` with D*M processes (data-parallel lanes,
 tensor-parallel weights), or `--auto_mesh`; rank 0 alone writes the run
-directory. `bench` is not ported yet and raises, naming its ROADMAP item.
+directory. `bench` prints bench.py's one-line throughput result for the
+port (bench/core.py).
 """
 
 from __future__ import annotations
@@ -33,9 +35,6 @@ import argparse
 import json
 import os
 import sys
-
-# command -> the ROADMAP item of the port that will bring it
-COMMANDS_NOT_PORTED = {"bench": "A17"}
 
 
 def _eval_suffix(m: dict) -> str:
@@ -570,6 +569,12 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from rvo3d_tpu_torch.bench import core
+
+    return core.main(["--device", args.device])
+
+
 def cmd_parity(args) -> int:
     from rvo3d_tpu_torch.parity import run_parity
 
@@ -580,10 +585,6 @@ def cmd_parity(args) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in COMMANDS_NOT_PORTED:
-        raise SystemExit(f"'{argv[0]}' is not ported to rvo3d_tpu_torch yet "
-                         f"(ROADMAP {COMMANDS_NOT_PORTED[argv[0]]}); the JAX "
-                         "package's CLI has it")
     p = argparse.ArgumentParser(prog="rvo3d_tpu_torch",
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -753,8 +754,9 @@ def main(argv=None) -> int:
                     help="the same control-noise samples in both implementations")
     pa.set_defaults(fn=cmd_parity)
 
-    for name, item in COMMANDS_NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported (ROADMAP {item})")
+    b = sub.add_parser("bench", help="run the benchmark")
+    b.add_argument("--device", default="cuda")
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

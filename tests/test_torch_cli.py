@@ -9,10 +9,9 @@ what must agree is what a user or a script reads: the run directory's
 files and checkpoint epochs, train.jsonl's keys line by line, the
 results.txt lines (one per population and evaluated epoch, same order,
 same format), best_checkpoint.json's keys and hint, config.json's keys,
-and the format of eval's line. Flags and commands that are not ported
-raise, naming their ROADMAP item (--curriculum, --torch_checkpoint and the
+and the format of eval's line (--curriculum, --torch_checkpoint and the
 data-parallel flags are held by tests/test_torch_{curriculum,ref_import,
-parallel}.py).
+parallel}.py, `bench` by tests/test_torch_bench.py).
 """
 
 import json
@@ -105,14 +104,6 @@ def test_eval_reverse_line_matches_the_jax_format(runs):
         lines = read(runs[k][1]).splitlines()
         assert len(lines) == 1 and EVAL.match(lines[0]), lines
         assert int(EVAL.match(lines[0]).group(1)) == 4
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["bench"], "A17"),
-])
-def test_unported_flags_and_commands_raise_with_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(argv)
 
 
 def test_bc_flag_checks_match_the_jax_cli(tmp_path):
