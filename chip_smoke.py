@@ -91,6 +91,25 @@ lanes x 300 steps with the per-agent update; `cuts` lists any cut),
 `bench_gru` (one kernel direction against the plain scan and cuDNN at
 B = 32768 and 131072, each beside its bound; max |kernel - plain| within
 1e-4 at both).
+Then the JAX side's last entry points, through their port: `entry_forward`
+(entry()'s flagship biGRU-256 forward at B = 256 with every neighbour slot
+on, card against CPU, the kernel timed at those rows beside its bound and
+cuDNN), `dryrun_multichip` (dryrun_multichip(4, full_size=True): the
+flagship epoch, 256 lanes x 8 drones, T = 100, over a 2 x 2 mesh of gloo
+ranks on this card, held against the same epoch unsharded: the metrics at
+1e-3 unless the rollouts part, the rollouts equal up to a 0.01 rounding
+tie, the params equal to the one-process update on the ranks' batch
+within 1e-5; the line says what held), `expert_diag`
+(expert_eval on world16_dense and world32_mix; expert_noise_sweep's
+sweep_world at the JAX plan's margins on world32_mix, its reversal and
+world16_dense, 100 lanes x 150 steps; world16_dense with slowdown, its
+first 4 noise streams at every margin, on the card against the CPU with
+identical per-lane outcomes), `conflict_diag` (at its defaults, 16 envs x
+400 steps, from a run directory holding the w32_m3s clone; its final
+forward of 204,800 rows timed), `bc_diag` (bc_eval on world16_dense, BC
+cut to 100 steps, then w3_diag --reuse of its clone) and
+`bench_detail_train_split` (bench.detail's section 4 on gen_demo, T cut to
+25 and 5 / 5 iterations); `cuts` lists each cut.
 Each of these phases that launches the masked GRU keeps the kernel's
 inputs at its first launch with each row count and holds the kernel to its
 plain version on them (`kernel_at_path_rows`, atol 1e-4); `bf16_serve` also
@@ -112,7 +131,7 @@ import io
 import json
 import math
 import os
-import socket
+import shutil
 import subprocess
 import sys
 import time
@@ -197,6 +216,16 @@ BENCH_SIZE = {"RVO3D_BENCH_ENVS": "16384", "RVO3D_BENCH_STEPS": "100",
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "repeats", "min", "median",
               "max", "device"}
 F64_ATOL = 1e-12           # float64 env on the card against the CPU
+# the phases of the JAX side's last entry points, through their port
+DRYRUN_RANKS = 4           # a 2 x 2 (data, model) mesh of gloo ranks on this card
+EXPERT_WORLDS = ("world16_dense", "world32_mix")
+SWEEP_PLAN = (("world32_mix", False), ("world32_mix", True), ("world16_dense", False))
+SWEEP_CHECK = ("world16_dense", True, 4)   # (world, slowdown, lanes a margin) card vs CPU
+BC_DIAG_STEPS = (2000, 100)  # bc_eval's BC steps: the script's, and this run's
+# section 4's depth: the script's, and this run's (its traced E256 epoch
+# writes ~3 MB of trace a step)
+SPLIT_CUTS = {"steps_per_epoch": (300, 25), "train_pi_iters": (20, 5),
+              "train_v_iters": (50, 5)}
 
 
 def recipe_argv(run_dir):
@@ -261,14 +290,17 @@ def p50_ms(fn, iters=30, warmup=3):
 
 def gru_bound(xs, ms, fwd, ndirs=2):
     """The least time of one launch on these inputs, of a biGRU (ndirs 2)
-    or one direction: the products of the active steps at the 3xTF32 peak,
-    or the bytes read once (xs, mask, each direction's weights) and
-    written once."""
+    or one direction: the products the data needs at the 3xTF32 peak (the
+    input product at every active step, the hidden product at every active
+    step after a row's first, where the carry is still h0 = 0), or the
+    bytes read once (xs, mask, each direction's weights) and written once
+    (each direction's [B, H] output)."""
     in_dim, hidden = xs.shape[-1], fwd[1].shape[0]
     active = float(ms.sum().item())
-    flops = 2.0 * ndirs * active * (in_dim + hidden) * 3 * hidden
+    rows_active = float((ms.sum(0) > 0).sum().item())
+    flops = 2.0 * ndirs * (active * in_dim + (active - rows_active) * hidden) * 3 * hidden
     nbytes = 4.0 * (xs.numel() + ms.numel() + ndirs * sum(t.numel() for t in fwd)
-                    + xs.shape[1] * hidden)
+                    + ndirs * xs.shape[1] * hidden)
     t_ops, t_bytes = flops / TF32X3_PEAK, nbytes / HBM_BYTES_S
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -338,6 +370,32 @@ def kernel_at_kept_rows(mg, keep, want=()):
         raise AssertionError(f"kernel at the path's rows: no launch at B = {missing}, "
                              f"max |kernel - plain| above {ATOL}: {bad}")
     return out
+
+
+def time_kept_launch(mg, kept, iters):
+    """One kept biGRU launch's inputs timed on the card: the kernel, its
+    plain version and cuDNN's unmasked bidirectional nn.GRU on the same
+    rows (launches made here are not counted), beside gru_bound."""
+    import torch
+
+    xs, ms, weights, _ = kept
+    xs, ms = xs.to("cuda"), ms.to("cuda")
+    fwd, bwd = [tuple(w.to("cuda") for w in ws) for ws in weights]
+    l0 = mg.launches
+    with torch.no_grad():
+        row = {"B": int(xs.shape[1]),
+               "active_slots_per_row": float(ms.sum() / ms.shape[1]),
+               "kernel_bigru_ms": cuda_ms(lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd),
+                                          iters),
+               "plain_bigru_ms": cuda_ms(lambda: mg.masked_bigru_scan_plain(xs, ms, fwd, bwd),
+                                         max(3, iters // 3))}
+        gru = torch.nn.GRU(xs.shape[-1], fwd[1].shape[0], bidirectional=True).to("cuda")
+        dense = xs.contiguous()
+        row["cudnn_bigru_unmasked_ms"] = cuda_ms(lambda: gru(dense), iters)
+    mg.launches = l0
+    row.update(gru_bound(xs, ms, fwd))
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_bigru_ms"]
+    return row
 
 
 def bf16_steps(ref):
@@ -478,28 +536,9 @@ def dp_worker(out_dir, tag="dp") -> int:
 def start_ranks(flag, tmp):
     """This script `flag tmp` (--dp-worker or --tp-worker) in DP_RANKS
     processes joined over a local port; their logs, once all exited 0."""
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), flag, tmp],
-        env=dict(os.environ, RVO3D_COORDINATOR=f"127.0.0.1:{port}",
-                 RVO3D_NUM_PROCESSES=str(DP_RANKS), RVO3D_PROCESS_ID=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(DP_RANKS)]
-    logs = []
-    try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=DP_TIMEOUT_S)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for r, (proc, log) in enumerate(zip(procs, logs)):
-        if proc.returncode != 0:
-            raise AssertionError(f"rank {r} exited {proc.returncode}:\n{log[-3000:]}")
-    return logs
+    from rvo3d_tpu_torch.parallel.multihost import start_ranks as start
+
+    return start([os.path.abspath(__file__), flag, tmp], DP_RANKS, DP_TIMEOUT_S)
 
 
 def reference_state_dict(seed, hidden=256, heads=(256, 256)):
@@ -1959,9 +1998,8 @@ def main(argv=None) -> int:
         rounding tie (the row-parallel sum of two partial products rounds
         differently from one product); the final params within
         DP_PARAM_TOL of the one-process update run here on the ranks' own
-        rollout batch."""
-        from rvo3d_tpu_torch.algo.gae import gae_advantages
-        from rvo3d_tpu_torch.algo.ppo import AgentData, make_optimizers, ppo_update
+        rollout batch (entry.tie_rule, which dryrun_multichip shares)."""
+        from rvo3d_tpu_torch import entry as entry_mod
         from rvo3d_tpu_torch.utils.checkpoint import load_config
 
         one = dp_one["one"]
@@ -1984,47 +2022,25 @@ def main(argv=None) -> int:
             b, ref = got["batch"], one["batch"]
             if any(not torch.equal(b[k], ranks[0]["batch"][k]) for k in b):
                 problems.append(f"rank {r}: its rollout differs from rank 0's")
-            d_act = (b["act"] - ref["act"]).abs().flatten(1).amax(1)     # [T]
-            t0 = next((t for t in range(len(d_act)) if d_act[t] > 0), None)
-            first_diff[f"rank{r}"] = t0
-            upto = len(d_act) if t0 is None else t0
-            for k in ref:
-                if not torch.equal(b[k][:upto], ref[k][:upto]) and k not in ("val", "logp"):
-                    problems.append(f"rank {r}: rollout {k} differs before step {upto}")
-            if t0 is not None:
-                da = (b["act"][t0] - ref["act"][t0]).abs()
-                if not bool(((da == 0) | ((da - 0.01).abs() < 1e-5)).all()):
-                    problems.append(f"rank {r}: first action difference at step {t0} is "
-                                    f"not a 0.01 rounding tie (max {da.max().item()})")
+            first_diff[f"rank{r}"] = entry_mod.rollout_parting(b, ref)[0]
             rollout[f"rank{r}"] = {k: (b[k].double() - ref[k].double()).abs().max().item()
                                    for k in ref if ref[k].is_floating_point()}
             for k in DP_KEYS:
                 if not np.allclose(got["metrics"][k], one["metrics"][k], **DP_METRIC_TOL):
                     problems.append(f"rank {r}: {k} {got['metrics'][k]} vs "
                                     f"{one['metrics'][k]}")
-        # the one-process update on the ranks' rollout batch, from the same
-        # start (the product's params, fresh optimizers, the update generator
-        # seeded as Trainer seeds it)
-        tr = cfg_tp.train
-        ac_u = ActorCritic(cfg_tp.model, device=dev)
-        ac_u.load_state_dict(product["state_dict"])
-        pi_u, vf_u = make_optimizers(tr, ac_u)
-        b = {k: v.to(dev) for k, v in ranks[0]["batch"].items()}
-        adv, ret = gae_advantages(b["rew"], b["val"], b["cut"][:, :, None], tr.gamma, tr.lam)
-        upd = ppo_update(ac_u, tr, pi_u, vf_u,
-                         AgentData(obs_self=b["obs_self"], obs_nbr=b["obs_nbr"],
-                                   obs_mask=b["obs_mask"], act=b["act"], adv=adv, ret=ret,
-                                   logp=b["logp"], val=b["val"]),
-                         torch.Generator().manual_seed(tr.seed))
-        one_update = {"pi_loss": upd.pi_loss.tolist(), "v_loss": upd.v_loss.tolist(),
-                      "kl": upd.kl.tolist(), "pi_iters": upd.pi_iters.tolist()}
-        param_err = max((params[k].double() - v.double().cpu()).abs().max().item()
-                        for k, v in ac_u.state_dict().items())
+        # the rounding-tie rule on the ranks' (equal) batch: from the same
+        # start as the ranks (the product's params), the one-process update
+        try:
+            held = entry_mod.tie_rule(ranks[0]["batch"], params, one["batch"],
+                                      product["state_dict"], cfg_tp, dev)
+        except AssertionError as e:
+            problems.append(str(e))
+            held = {"one_update": {"pi_iters": None},
+                    "params_max_abs_diff_same_batch": None}
+        one_update, param_err = held["one_update"], held["params_max_abs_diff_same_batch"]
         epoch_param_err = max((params[k].double() - v.double()).abs().max().item()
                               for k, v in dp_one["params"].items())
-        if param_err > DP_PARAM_TOL:
-            problems.append(f"final params differ from the one-process update on the same "
-                            f"batch by {param_err} > {DP_PARAM_TOL}")
         if one_update["pi_iters"] != ranks[0]["metrics"]["pi_iters"]:
             problems.append(f"pi iterations {ranks[0]['metrics']['pi_iters']} against "
                             f"{one_update['pi_iters']} in one process")
@@ -2207,6 +2223,212 @@ def main(argv=None) -> int:
             raise AssertionError(f"bench_gru: max |kernel - plain| {bad}: {out}")
         return out
     run_phase("bench_gru", bench_gru)
+
+    # ---- the JAX side's last entry points: the graft entry and its
+    # sharded dry run, the BC and expert diagnostics, bench_detail section 4 ----
+    from rvo3d_tpu_torch import entry as entry_mod
+    from rvo3d_tpu_torch.diag import bc_eval as bc_eval_mod
+    from rvo3d_tpu_torch.diag import conflict_diag as conflict_mod
+    from rvo3d_tpu_torch.diag import expert_eval as expert_eval_mod
+    from rvo3d_tpu_torch.diag import expert_noise_sweep as sweep_mod
+    from rvo3d_tpu_torch.diag import w3_diag as w3_mod
+    gru_path_rows = {}
+
+    def entry_forward():
+        """entry()'s flagship forward at B = 256 with every slot on, card
+        against CPU, the kernel against plain at those rows, timed."""
+        module, example = entry_mod.entry("cuda")
+        keep = {}
+        mg.launches = 0
+        with kernel_inputs_kept(mg, keep), torch.no_grad():
+            got = module(*example)
+        torch.cuda.synchronize()
+        launches_by_phase["entry_forward"] = mg.launches
+        ac_cpu = ActorCritic(ModelConfig(), device="cpu")
+        ac_cpu.load_state_dict(module.state_dict())
+        with torch.no_grad():
+            ref = ac_cpu(*[x.cpu() for x in example])
+        err = {k: (a.cpu() - b).abs().max().item()
+               for k, a, b in zip(("mu", "std", "v"), got, ref)}
+        at_rows = kernel_at_kept_rows(mg, keep, want=(entry_mod.B,))
+        timed = time_kept_launch(mg, keep[entry_mod.B], 30)
+        gru_path_rows["entry_B256_full_mask"] = timed
+        out = {"B": entry_mod.B, "nm": entry_mod.NM, "card_vs_cpu_max_abs": err,
+               "atol": ATOL, "kernel_at_path_rows": at_rows, "timed": timed,
+               "gru_launches": launches_by_phase["entry_forward"], "card": smi}
+        if not max(err.values()) <= ATOL or timed["active_slots_per_row"] != entry_mod.NM:
+            raise AssertionError(f"entry_forward: {out}")
+        return out
+    run_phase("entry_forward", entry_forward)
+
+    def dryrun_multichip():
+        """dryrun_multichip(4, full_size=True): the flagship epoch over a
+        2 x 2 mesh of gloo ranks on this card against the same epoch
+        unsharded here; the kernel against plain at the rows this process
+        launched it with (the ranks' own launches are counted)."""
+        keep, buf = {}, io.StringIO()
+        mg.launches = 0
+        with kernel_inputs_kept(mg, keep), contextlib.redirect_stdout(buf):
+            art = entry_mod.dryrun_multichip(DRYRUN_RANKS, full_size=True, device="cuda")
+        here = mg.launches
+        lines = buf.getvalue().splitlines()
+        ranks = {k: v for k, v in art["launches"].items() if k.startswith("rank")}
+        launches_by_phase["dryrun_multichip"] = here + sum(ranks.values())
+        lanes_rows = art["shapes"]["num_envs"] * art["shapes"]["num_drones"]
+        at_rows = kernel_at_kept_rows(mg, keep, want=(lanes_rows,))
+        return {"lines": lines, "held": art["held"], "metrics": art["metrics"],
+                "steps_per_sec": art["steps_per_sec"], "mesh": art["mesh"],
+                "backend": art["backend"], "shapes": art["shapes"],
+                "artifact": art["artifact"], "gru_launches": {"this_process": here, **ranks},
+                "kernel_at_path_rows": at_rows, "atol": ATOL, "cuts": {}, "card": smi}
+    run_phase("dryrun_multichip", dryrun_multichip)
+
+    def expert_diag():
+        """expert_eval on world16_dense and world32_mix; sweep_world with the
+        plan's margins on world32_mix, its reversal and world16_dense; one
+        (world, slowdown) pair's per-lane outcomes on the card against the
+        CPU under the same draws (its first lanes at every margin)."""
+        mg.launches = 0
+        t0 = time.perf_counter()
+        rc, eval_lines = quiet_main(expert_eval_mod.main,
+                                    [*EXPERT_WORLDS, "--device", "cuda"])
+        eval_s = time.perf_counter() - t0
+        margins = {(w, rev): m for w, m, rev in sweep_mod.PLAN}
+        rows, sweep_s = [], {}
+        for wname, rev in SWEEP_PLAN:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                got = sweep_mod.sweep_world(wname, margins[(wname, rev)], reverse=rev,
+                                            device="cuda")
+            rows += got
+            sweep_s[wname + (":rev" if rev else "")] = time.perf_counter() - t0
+        # the check: per-lane flags, card against CPU, same margins and draws
+        wname, slowdown, lanes = SWEEP_CHECK
+        wd_c = load_world(wname)
+        p_c = dataclasses.replace(EnvParams(num_drones=wd_c.drone_num), noise=True,
+                                  control_std=0.06)
+        ms = margins[(wname, False)]
+        g = torch.Generator(device=dev).manual_seed(sweep_mod.NOISE_SEED)
+        streams = torch.randn((sweep_mod.MAX_EP_LEN, sweep_mod.LANES, wd_c.drone_num, 3),
+                              generator=g, device=dev)[:, :lanes].repeat(1, len(ms), 1, 1)
+        flags = {}
+        t0 = time.perf_counter()
+        for d in (dev, "cpu"):
+            lm = torch.tensor(ms, device=d).repeat_interleave(lanes)
+            out = sweep_mod.noisy_episode(wd_c.spec(device=d), p_c, slowdown, lm,
+                                          streams.to(d))
+            flags[str(torch.device(d).type)] = [x.cpu() for x in out]
+        check_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(flags["cuda"], flags["cpu"]))
+        launches_by_phase["expert_diag"] = mg.launches
+        out = {"expert_eval": eval_lines, "expert_eval_s": eval_s, "rows": rows,
+               "sweep_s": sweep_s, "lanes": sweep_mod.LANES,
+               "max_ep_len": sweep_mod.MAX_EP_LEN,
+               "card_vs_cpu": {"world": wname, "slowdown": slowdown, "margins": ms,
+                               "lanes_per_margin": lanes, "identical": same,
+                               "successes": int(flags["cuda"][0].sum()),
+                               "mean_ep_len": float(flags["cuda"][1].float().mean()),
+                               "collisions": int(flags["cuda"][2].sum()),
+                               "seconds": check_s},
+               "gru_launches": mg.launches, "card": smi}
+        want = sum(len(margins[k]) * 2 for k in SWEEP_PLAN)
+        if rc != 0 or len(eval_lines) != 2 * len(EXPERT_WORLDS) or len(rows) != want \
+                or not same:
+            raise AssertionError(f"expert_diag: {out}")
+        return out
+    run_phase("expert_diag", expert_diag)
+
+    def conflict_diag():
+        """conflict_diag at its defaults (16 envs x 400 steps) on world32_mix
+        from a run directory holding the committed w32_m3s clone; its final
+        forward over all 204,800 rows timed beside its bound and cuDNN."""
+        import tempfile
+
+        keep = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            run = os.path.join(tmp, "w32_m3s")
+            os.makedirs(os.path.join(run, "ckpt", "5"))
+            shutil.copy(W32_CONFIG, os.path.join(run, "config.json"))
+            w32 = torch.load(W32_PARAMS, map_location="cpu", weights_only=True)
+            torch.save({"epoch": 5, "params": w32["state_dict"]},
+                       os.path.join(run, "ckpt", "5", "state.pt"))
+            report_path = os.path.join(tmp, "report.json")
+            mg.launches = 0
+            with kernel_inputs_kept(mg, keep):
+                rc, lines = quiet_main(conflict_mod.main, [
+                    run, "world32_mix", "--out", report_path, "--device", "cuda"])
+            with open(report_path) as f:
+                report = json.load(f)
+        launches_by_phase["conflict_diag"] = mg.launches
+        rows = report["states"]
+        at_rows = kernel_at_kept_rows(mg, keep, want=(rows, 16 * 32))
+        timed = time_kept_launch(mg, keep[rows], 5)
+        gru_path_rows[f"conflict_diag_B{rows}"] = timed
+        out = {"report": report, "kernel_at_path_rows": at_rows, "atol": ATOL,
+               "timed": timed, "gru_launches": launches_by_phase["conflict_diag"],
+               "cuts": {}, "card": smi}
+        finite = all(math.isfinite(v) for v in report["rms_err_cruise"])
+        if rc != 0 or rows != 16 * 400 * 32 or not finite:
+            raise AssertionError(f"conflict_diag: {out}")
+        return out
+    run_phase("conflict_diag", conflict_diag)
+
+    def bc_diag():
+        """bc_eval on world16_dense (BC steps cut), then w3_diag --reuse of
+        its clone."""
+        import tempfile
+
+        keep = {}
+        mg.launches = 0
+        with tempfile.TemporaryDirectory() as tmp, kernel_inputs_kept(mg, keep):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                clone = bc_eval_mod.run("world16_dense", "rvo", BC_DIAG_STEPS[1],
+                                        device="cuda")
+            eval_s = time.perf_counter() - t0
+            path = os.path.join(tmp, "world16_dense_bc_torch.pt")
+            torch.save(clone.state_dict(), path)
+            t0 = time.perf_counter()
+            rc, w3_lines = quiet_main(w3_mod.main, ["world16_dense", path, "--reuse",
+                                                    "--device", "cuda"])
+            w3_s = time.perf_counter() - t0
+        launches_by_phase["bc_diag"] = mg.launches
+        at_rows = kernel_at_kept_rows(mg, keep, want=(16,))
+        steps = [ln for ln in w3_lines if ln.startswith("t=")]
+        out = {"bc_eval": buf.getvalue().splitlines(), "bc_eval_s": eval_s,
+               "w3_diag_head": w3_lines[:2], "w3_diag_tail": w3_lines[-2:],
+               "w3_diag_steps": len(steps), "w3_diag_s": w3_s,
+               "kernel_at_path_rows": at_rows, "atol": ATOL,
+               "gru_launches": launches_by_phase["bc_diag"],
+               "cuts": {"bc_steps": list(BC_DIAG_STEPS)}, "card": smi}
+        if rc != 0 or not w3_lines[0].startswith("reused params") or not steps \
+                or len(out["bc_eval"]) != 4:
+            raise AssertionError(f"bc_diag: {out}")
+        return out
+    run_phase("bc_diag", bc_diag)
+
+    def bench_detail_train_split():
+        """Section 4 of the detail bench on gen_demo (its depth cut)."""
+        keep = {}
+        mg.launches = 0
+        with kernel_inputs_kept(mg, keep), contextlib.redirect_stdout(io.StringIO()):
+            res = bench_detail_mod.train_split(
+                "gen_demo", dev, **{k: v[1] for k, v in SPLIT_CUTS.items()})
+        launches_by_phase["bench_detail_train_split"] = mg.launches
+        at_rows = kernel_at_kept_rows(mg, keep, want=(256 * 4, 4096 * 4))
+        rates = [r[k] for r in res.values() for k in ("env_steps_per_sec_full",
+                                                      "env_steps_per_sec_rollout_only")]
+        trace_file = os.path.join(bench_core.OUT_DIR, "profiles", "gen_demo_train_epoch",
+                                  "trace.json")
+        out = {"results": res, "kernel_at_path_rows": at_rows, "atol": ATOL,
+               "cuts": {k: list(v) for k, v in SPLIT_CUTS.items()},
+               "trace_bytes": os.path.getsize(trace_file),
+               "gru_launches": launches_by_phase["bench_detail_train_split"], "card": smi}
+        if len(res) != 2 or not all_rates_ok(rates):
+            raise AssertionError(f"bench_detail_train_split: {out}")
+        return out
+    run_phase("bench_detail_train_split", bench_detail_train_split)
     launches = sum(launches_by_phase.values())
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "card": smi})
@@ -2222,6 +2444,7 @@ def main(argv=None) -> int:
         "library_ms": kstats["library_ms"],
         "bound_ms_f32_simt": kstats["bound_ms_f32_simt"],
         "launches_by_phase": launches_by_phase,
+        "biGRU_at_path_rows": gru_path_rows,
         "one_direction_by_B": {b: {k: r[k] for k in ("kernel_ms", "plain_ms",
                                                      "cudnn_gru_unmasked_ms", "bound_ms",
                                                      "bound_by", "max_abs_err")}

@@ -30,6 +30,8 @@ from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
 Randn = Callable[[str, Tuple[int, ...]], torch.Tensor]
 # behavior_fn(obs_self, obs_nbr, obs_mask) -> the executed action [E, N, 3]
 BehaviorFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+# on_round(round, ac, loss): after each fit, with the clone as that fit left it
+OnRound = Callable[[int, ActorCritic, float], None]
 
 
 @torch.no_grad()
@@ -158,7 +160,8 @@ def bc_pretrain(ac: ActorCritic, world: Union[WorldSpec, Sequence[WorldSpec]],
                 conflict_weight: float = 1.0, expert_slowdown: bool = False,
                 env_noise: bool = False,
                 randn: Optional[Randn] = None,
-                indices: Optional[Callable[[int, int], torch.Tensor]] = None) -> float:
+                indices: Optional[Callable[[int, int], torch.Tensor]] = None,
+                on_round: Optional[OnRound] = None) -> float:
     """Behavior cloning with DAgger rounds; trains `ac` in place and returns
     the final loss on the aggregate set.
 
@@ -169,7 +172,11 @@ def bc_pretrain(ac: ActorCritic, world: Union[WorldSpec, Sequence[WorldSpec]],
     round then collects from each (in order) into one set. Minibatches have
     min(batch, capacity) rows, capacity counting every round. The draws
     come from `generator` (on the policy's device); `randn(kind, shape)`
-    and `indices(round, step)` replace them."""
+    and `indices(round, step)` replace them. on_round(r, ac, loss) runs
+    after round r's fit (r = 0 the expert's round, r >= 1 the DAgger
+    rounds), as the JAX package's callback does; `ac` is the clone itself,
+    trained in place, so whatever the callback evaluates is the current
+    clone."""
     worlds = [world] if isinstance(world, WorldSpec) else list(world)
     round_n = demo_steps * num_envs * p.num_drones * len(worlds)
     cap = round_n * (dagger_rounds + 1)
@@ -196,4 +203,6 @@ def bc_pretrain(ac: ActorCritic, world: Union[WorldSpec, Sequence[WorldSpec]],
             n_valid += new[0].shape[0]
         loss = fit(ac, data, n_valid, train_steps, rows, lr, generator, conflict_weight,
                    None if indices is None else (lambda s, r=r: indices(r, s)))
+        if on_round is not None:
+            on_round(r, ac, loss)
     return loss

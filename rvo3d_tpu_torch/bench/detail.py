@@ -1,5 +1,5 @@
 """Detailed throughput of the port (its counterpart of
-scripts/bench_detail.py, sections 1-3):
+scripts/bench_detail.py):
 
   1. env-only stepping (core.py's metric) at 2048, 4096, 8192 and 16384
      lanes, 60 steps, 2 repeats
@@ -9,24 +9,34 @@ scripts/bench_detail.py, sections 1-3):
      TrainConfig(steps_per_epoch=300, num_envs=32), every other field at
      its default: the per-agent update, 50 pi and 50 v iterations; the
      second of two epochs is timed
+  4. with --world only: a training epoch of that world (the JAX script
+     runs world_2) split into rollout and update, at the two tags of the JAX
+     script (bench_detail.py:120-165): E256_reference_schedule (256 lanes)
+     and E4096_minibatch_batched (4096 lanes, the batched update with
+     minibatch 32768), T = 300, 20 pi / 50 v iterations: the rollout alone
+     (algo/rollout.py, best of 3 from one carry), then the second of two
+     full epochs, the update by difference; then one more E256 epoch
+     traced (utils/profiler.trace) into runs_torch/bench/profiles/
 
-    python -m rvo3d_tpu_torch.bench.detail [--device cuda]
+    python -m rvo3d_tpu_torch.bench.detail [--world W] [--device cuda]
 
-Writes runs_torch/bench/bench_details.json. The JAX script's section 4
-needs the reference fixture world_2, which this repository does not hold.
+Writes runs_torch/bench/bench_details.json. world_2, the JAX script's
+world for section 4, is a reference fixture this repository does not
+hold; gen_demo is the in-repo world closest to it in size.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Dict, Sequence
 
 import torch
 
-from rvo3d_tpu_torch.bench.core import (bench_env, best_seconds, device_name, sync,
-                                        world_spec, write_results)
+from rvo3d_tpu_torch.bench.core import (OUT_DIR, bench_env, best_seconds, device_name,
+                                        sync, world_spec, write_results)
 from rvo3d_tpu_torch.bench.flagship import flagship_world
 from rvo3d_tpu_torch.config import Config, EnvParams, ModelConfig, TrainConfig
 from rvo3d_tpu_torch.env import geometry as geo
@@ -42,6 +52,9 @@ SEED = 0             # the policy's weights; its draws come from SEED + 1
 ROLLOUT_NOTE = ("one policy path: on the card the masked GRU runs the hand-written "
                 "kernel and nothing switches it off, so the JAX script's scan/pallas "
                 "pair is one number")
+# section 4's two tags: lanes, and the TrainConfig fields beyond the shared ones
+SPLIT_TAGS = (("E256_reference_schedule", 256, {}),
+              ("E4096_minibatch_batched", 4096, {"minibatch": 32768, "batched_update": True}))
 
 
 def env_sweep(world_dict: dict, lanes: Sequence[int] = SWEEP_LANES, steps: int = 60,
@@ -106,10 +119,72 @@ def ppo_epoch(world_dict: dict, steps_per_epoch: int = 300, num_envs: int = 32,
             "pi_iters": m["pi_iters"]}
 
 
+def train_split(world_name: str = "world_2", device="cuda", steps_per_epoch: int = 300,
+                train_pi_iters: int = 20, train_v_iters: int = 50) -> Dict[str, dict]:
+    """Section 4: per tag, the rollout's seconds (best of 3 from clones of
+    one carry, after a warm-up), the second of two full epochs' seconds,
+    the update's by difference and both rates; one more E256 epoch is
+    traced. Keys w2_<tag> for world_2, <world>_<tag> otherwise (the JAX
+    script's names). The depth (T, iterations) defaults to the script's."""
+    from rvo3d_tpu_torch.algo.rollout import rollout_epoch
+    from rvo3d_tpu_torch.algo.trainer import Trainer
+    from rvo3d_tpu_torch.utils.profiler import trace
+    from rvo3d_tpu_torch.worlds import load_world
+
+    dev = resolve_device(device)
+    wd = load_world(world_name)
+    prefix = "w2" if world_name == "world_2" else world_name
+    out = {}
+    for tag, lanes, extra in SPLIT_TAGS:
+        cfg = Config(env=EnvParams(num_drones=wd.drone_num, safe_rewards=True),
+                     model=ModelConfig(log_std_init=-2.3),
+                     train=TrainConfig(steps_per_epoch=steps_per_epoch, num_envs=lanes,
+                                       train_pi_iters=train_pi_iters,
+                                       train_v_iters=train_v_iters, target_kl=0.01,
+                                       pi_lr=1e-6, action_mode="direct", **extra))
+        tr = Trainer(cfg, wd.spec(device=dev), device=dev)
+        carries = iter([tr.snapshot()[3] for _ in range(4)])
+
+        def roll():
+            with torch.no_grad():
+                return rollout_epoch(tr.ac, tr.world, cfg.env, cfg.train, next(carries))
+        dt_roll = best_seconds(roll, dev, 3)
+        tr.run_epoch()
+        sync(dev)
+        t0 = time.perf_counter()
+        tr.run_epoch()
+        sync(dev)
+        dt_full = time.perf_counter() - t0
+        steps = steps_per_epoch * lanes
+        out[f"{prefix}_{tag}"] = {
+            "rollout_seconds": round(dt_roll, 3),
+            "full_epoch_seconds": round(dt_full, 3),
+            "update_seconds_approx": round(dt_full - dt_roll, 3),
+            "env_steps_per_sec_full": round(steps / dt_full, 1),
+            "env_steps_per_sec_rollout_only": round(steps / dt_roll, 1),
+        }
+        print(f"{prefix} {tag}: rollout {dt_roll:.2f}s, full {dt_full:.2f}s "
+              f"-> {steps / dt_full:,.0f} env-steps/s full epoch", flush=True)
+        if tag == "E256_reference_schedule":
+            profile = os.path.join(OUT_DIR, "profiles", f"{prefix}_train_epoch")
+            with trace(profile):
+                tr.run_epoch()
+                sync(dev)
+            print(f"profiler trace: {profile}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--world", default=None,
+                    help="run section 4 on this world (the JAX script's is world_2)")
     ap.add_argument("--device", default="cuda")
-    dev = resolve_device(ap.parse_args(argv).device)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if args.world:
+        from rvo3d_tpu_torch.worlds import load_world
+
+        load_world(args.world)        # a missing world fails before any timing
     world_dict = flagship_world()
     results = {"device": device_name(dev)}
 
@@ -129,6 +204,9 @@ def main(argv=None) -> int:
     print(f"PPO epoch (E=32, T=300, 8 drones): {epoch['ppo_epoch_seconds']:.2f}s "
           f"({epoch['ppo_env_steps_per_sec']:,.0f} env-steps/s incl. 8x(50pi+50v) "
           "updates)", flush=True)
+
+    if args.world:
+        results.update(train_split(args.world, dev))
 
     print(f"wrote {write_results(results, 'bench_details.json')}")
     print(json.dumps(results))

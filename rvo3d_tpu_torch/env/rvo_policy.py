@@ -15,7 +15,7 @@ static.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -25,6 +25,8 @@ from rvo3d_tpu_torch.env.env import _vo_others, drone_states_12
 from rvo3d_tpu_torch.env.state import DroneState, WorldSpec
 
 INF = float("inf")
+# a margin for every drone, or one per lane: a tensor of the state's lead shape
+Margin = Optional[Union[float, torch.Tensor]]
 
 
 def candidate_grid(vmax: float, spacing: float, min_speed: float, dtype, device
@@ -39,7 +41,7 @@ def candidate_grid(vmax: float, spacing: float, min_speed: float, dtype, device
 
 def rvo_choice(world: WorldSpec, state: DroneState, p: EnvParams,
                spacing: float = 0.25, min_speed: float = 0.0, vmax: float = 1.0,
-               margin: Optional[float] = None, slowdown: bool = False
+               margin: Margin = None, slowdown: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(chosen candidate index [..., N], candidates [C, 3]); see rvo_velocity."""
     if margin is None:
@@ -69,6 +71,8 @@ def rvo_choice(world: WorldSpec, state: DroneState, p: EnvParams,
     r_sum = radius[..., :, None] + o_radius[..., None, :]
     pos_equal = torch.all(pos[..., :, None, :] == o_pos[..., None, :, :], dim=-1)
     valid = (~pos_equal) & (dis <= p.drone_range) & (dis > r_sum)
+    if isinstance(margin, torch.Tensor):      # per lane [...] -> [..., 1, 1]
+        margin = margin.to(dis.dtype).reshape(margin.shape + (1, 1))
     r_safe = torch.minimum(r_sum + margin, dis - 1e-3)   # keep asin in range
     alpha = geo.cone_alpha(dis, r_safe, parity_round=False)
     paa = geo.reciprocal_apex(
@@ -132,12 +136,13 @@ def rvo_choice(world: WorldSpec, state: DroneState, p: EnvParams,
 
 def rvo_velocity(world: WorldSpec, state: DroneState, p: EnvParams,
                  spacing: float = 0.25, min_speed: float = 0.0, vmax: float = 1.0,
-                 margin: Optional[float] = None, slowdown: bool = False) -> torch.Tensor:
+                 margin: Margin = None, slowdown: bool = False) -> torch.Tensor:
     """Per-drone collision-free velocities [..., N, 3].
 
     Beyond the reference's continuous-time cone test, candidates are also
     screened by the env's own collision rule, the endpoint distance after
-    one dt. `margin` (default p.exp_radius) inflates radii in both tests;
+    one dt. `margin` (default p.exp_radius) inflates radii in both tests,
+    by one value or by one per lane (a tensor of the state's lead shape);
     `slowdown` aims to land on the active waypoint when one step away."""
     idx, cands = rvo_choice(world, state, p, spacing, min_speed, vmax, margin, slowdown)
     return cands[idx]

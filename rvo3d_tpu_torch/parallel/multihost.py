@@ -16,14 +16,25 @@ NCCL when this host has a card for each of its ranks (local rank r then
 runs on cuda:r), and gloo when ranks share cards, which NCCL refuses. Every
 host must have the same card count and ranks per host, so that all ranks
 pick the same backend. A failed start raises.
+
+`start_ranks` starts such a group of processes on this host, each with
+its RVO3D_* variables, for a program that needs several ranks in one
+call (the entry's sharded dry run, the card checks' parallel phases).
 """
 
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import sys
+from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+# the directory that holds this package: the ranks import it from there
+_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def local_processes() -> int:
@@ -72,3 +83,34 @@ def rank_device(device) -> torch.device:
 def is_coordinator() -> bool:
     """True on the process that writes logs, checkpoints and results."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def start_ranks(argv: Sequence[str], n: int, timeout: float) -> List[str]:
+    """Run `python argv...` as ranks 0..n-1 of one process group on this
+    host (the RVO3D_* variables, the coordinator on a free local port) and
+    wait for all of them; returns their logs (stdout and stderr), and
+    raises if any rank exits non-zero or outlives `timeout` seconds. Every
+    rank that is still running when this returns or raises is killed."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    path = os.pathsep.join(p for p in (_PACKAGE_ROOT, os.environ.get("PYTHONPATH")) if p)
+    procs = [subprocess.Popen(
+        [sys.executable, *argv],
+        env=dict(os.environ, PYTHONPATH=path, RVO3D_COORDINATOR=f"127.0.0.1:{port}",
+                 RVO3D_NUM_PROCESSES=str(n), RVO3D_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise RuntimeError(f"rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+    return logs

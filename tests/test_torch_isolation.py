@@ -82,6 +82,48 @@ def test_port_runs_with_jax_blocked():
     assert "isolated-ok" in proc.stdout
 
 
+# the counterparts of the JAX side's entry points: each imports with JAX
+# blocked and, asked for its default device without a card, raises
+ENTRY_POINTS = {
+    "rvo3d_tpu_torch.entry": [],
+    "rvo3d_tpu_torch.diag.expert_eval": ["gen_demo"],
+    "rvo3d_tpu_torch.diag.expert_noise_sweep": [],
+    "rvo3d_tpu_torch.diag.conflict_diag": ["RUN_DIR", "gen_demo"],
+    "rvo3d_tpu_torch.diag.bc_eval": ["gen_demo"],
+    "rvo3d_tpu_torch.diag.bc_trace": ["gen_demo"],
+    "rvo3d_tpu_torch.diag.w3_diag": ["gen_demo"],
+    "rvo3d_tpu_torch.bench.detail": ["--world", "gen_demo"],
+    "rvo3d_tpu_torch.examples.env_smoke": ["gen_demo"],
+}
+ENTRY_BLOCKER = BLOCKER.split("import torch\n")[0] + """import importlib
+import torch
+assert not torch.cuda.is_available()
+for name, argv in {entry_points!r}.items():
+    mod = importlib.import_module(name)
+    try:
+        mod.main(argv)
+    except RuntimeError as e:
+        assert "torch.cuda.is_available() is False" in str(e), (name, e)
+    else:
+        raise AssertionError(name + " ran without a card")
+assert not any(m.split(".")[0] in {banned!r} for m in sys.modules)
+print("entry-points-ok")
+"""
+
+
+def test_entry_points_import_isolated_and_need_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    code = ENTRY_BLOCKER.format(banned=sorted(BANNED), repo=REPO,
+                                entry_points=ENTRY_POINTS)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "entry-points-ok" in proc.stdout
+
+
 def _assert_refused(proc):
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
