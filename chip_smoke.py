@@ -57,9 +57,11 @@ rtol 1e-3, final params within 1e-5, rank-0 artifacts once),
 lanes, T = 32, full width), `reference_import` (a reference-layout
 biGRU-256 state dict from the seed, card against CPU, then
 `cli eval --torch_checkpoint`) and `profile_rollout_step`
-(utils/profiler.trace over 5 rollout steps at w16_r4's width: the 15 CUDA
-ops with the most device time, launches per step, the masked-GRU kernel
-among them; the trace goes to chiprun_out/profile_rollout_step/).
+(utils/profiler.trace over 5 graphed rollout steps at w16_r4's width: the
+15 CUDA ops with the most device time, launches per step, the device's
+idle share, the masked-GRU kernel among them; the trace goes to
+chiprun_out/profile_rollout_step/; the same 5 eager steps' idle share
+beside it).
 Then world generation, the oracle parity check, rendering and tensor
 parallelism: `worldgen_parity` (`cli worldgen` of a 16-drone world at
 world16_dense's map size, seed 0, then `cli parity --x64 --device cuda`,
@@ -110,9 +112,26 @@ forward of 204,800 rows timed), `bc_diag` (bc_eval on world16_dense, BC
 cut to 100 steps, then w3_diag --reuse of its clone) and
 `bench_detail_train_split` (bench.detail's section 4 on gen_demo, T cut to
 25 and 5 / 5 iterations); `cuts` lists each cut.
+Then the step loops as CUDA graphs (utils/graphs.py), through which every
+phase above runs its bench chunks, evaluations, rollouts and served
+batches on the card (the tensor-parallel rollouts stay eager): `graphs`
+holds each graphed loop against its eager body in this process, every
+leaf bit for bit, and times both in turns: the flagship bench chunk at
+bench.py's size (16384 x 100) in float64 and float32, and the step time
+over 2048-16384 lanes; the eval chunk (the w16_r4 product, 128 lanes,
+40 steps; timed at 128 and 256 lanes); three rollout epochs at w16_r4's
+width with T cut to 64 (step ms; the idle shares come from
+`profile_rollout_step`, which now traces 5 graphed steps and the same 5
+eager ones); `PolicyServer.act` at B = 1, 64 and 4096, deterministic and
+stochastic (p50 ms). Before those, each graphed loop that flies the policy
+(the eval chunk at 128 and 256 lanes, the rollout at 128, act at B = 1, 64
+and 4096) runs 3 steps in a loop of its own whose graph also copies the
+kernel's inputs and output, and the last replay's output is held to the
+plain version on its inputs (`kernel_at_replayed_launch`, atol 1e-4).
 Each of these phases that launches the masked GRU keeps the kernel's
 inputs at its first launch with each row count and holds the kernel to its
-plain version on them (`kernel_at_path_rows`, atol 1e-4); `bf16_serve` also
+plain version on them (`kernel_at_path_rows`, atol 1e-4; a graphed loop's
+first step runs eagerly, and its launch is the one kept); `bf16_serve` also
 holds its bfloat16 forward on the card to the CPU's, within 1e-4 plus two
 bfloat16 steps at the output's largest value.
 Each phase prints one JSON line with its wall-clock seconds, and a `total`
@@ -321,25 +340,62 @@ def encoder_view(obs_nbr, obs_mask):
 
 
 @contextlib.contextmanager
-def kernel_inputs_kept(mg, keep):
+def kernel_inputs_kept(mg, keep, replayed=None):
     """While open, the masked-GRU kernel's inputs at its first launch with
     each row count B go into keep[B]: clones, with the launch's strides, of
     the operands the path gave the kernel (bfloat16-rounded ones included).
-    The launches themselves are unchanged."""
+    The launches themselves are unchanged. A launch being captured into a
+    CUDA graph is not kept there (its clone would be a node of the graph):
+    a graphed loop's first step runs eagerly (utils/graphs.py), and its
+    launches are the ones kept. With `replayed`, the first captured launch
+    with each B puts into replayed[B] clones of its inputs and of its
+    output made inside the graph, as its nodes: after each replay they
+    hold that replay's launch (kernel_at_replayed)."""
+    import torch
+
     real = mg.launch
+
+    def clones(xs, mask, weights, reverse):
+        return (xs.detach().clone(), mask.detach().clone(),
+                [tuple(w.detach().clone() for w in ws) for ws in weights], bool(reverse))
 
     def launch(xs, mask, weights, reverse=False):
         b = int(xs.shape[1])
-        if b not in keep:
-            keep[b] = (xs.detach().clone(), mask.detach().clone(),
-                       [tuple(w.detach().clone() for w in ws) for ws in weights],
-                       bool(reverse))
-        return real(xs, mask, weights, reverse)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if b not in keep and not capturing:
+            keep[b] = clones(xs, mask, weights, reverse)
+        out = real(xs, mask, weights, reverse)
+        if capturing and replayed is not None and b not in replayed:
+            replayed[b] = clones(xs, mask, weights, reverse) + (out.detach().clone(),)
+        return out
     mg.launch = launch
     try:
         yield keep
     finally:
         mg.launch = real
+
+
+def kernel_at_replayed(mg, replayed):
+    """A replayed launch's own output (kernel_inputs_kept's `replayed`,
+    read after the graph's last replay) against the plain version on that
+    launch's inputs; raises above ATOL or when nothing was captured."""
+    import torch
+
+    out = {}
+    for b, (xs, ms, weights, reverse, got) in sorted(replayed.items()):
+        with torch.no_grad():
+            if len(weights) == 2:
+                ref = mg.masked_bigru_scan_plain(xs, ms, *weights)
+            else:
+                ref = mg.masked_gru_scan_plain(xs, ms, *weights[0], reverse=reverse)
+        out[f"B{b}"] = {"max_abs_err": (got - ref).abs().max().item(),
+                        "active_slots_per_row": float(ms.sum() / ms.shape[1]),
+                        "directions": len(weights)}
+    bad = {k: r["max_abs_err"] for k, r in out.items() if not r["max_abs_err"] <= ATOL}
+    if not out or bad:
+        raise AssertionError(f"replayed launch: none captured, or max |kernel - plain| "
+                             f"above {ATOL}: {bad}")
+    return out
 
 
 def kernel_at_kept_rows(mg, keep, want=()):
@@ -436,6 +492,27 @@ def lane_spread(state):
         else:
             differ += int((x != x[:1]).sum().item())
     return {"max_abs": worst, "integer_and_flag_entries": differ}
+
+
+def tree_diff(a, b, path=""):
+    """Two trees of NamedTuples/tuples of tensors on one device: (max |a - b|
+    over the float leaves, the paths of the leaves that are not equal bit
+    for bit, dtypes included)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return math.inf, [path]
+        worst = 0.0
+        if a.is_floating_point() and a.numel():   # inf - inf (equal) counts 0
+            worst = float(torch.nan_to_num((a.double() - b.double()).abs(), nan=0.0).max())
+        return worst, [] if torch.equal(a, b) else [path]
+    worst, differ = 0.0, []
+    if isinstance(a, tuple):
+        for name, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+            w, d = tree_diff(x, y, f"{path}.{name}" if path else str(name))
+            worst, differ = max(worst, w), differ + d
+    return worst, differ
 
 
 def quiet_main(main, argv):
@@ -1804,58 +1881,271 @@ def main(argv=None) -> int:
 
     def profile_rollout_step():
         """torch.profiler over 5 rollout steps at w16_r4's width with the
-        product's weights: the 15 CUDA ops with the most device time."""
-        from rvo3d_tpu_torch.algo.rollout import rollout_epoch
+        product's weights, replayed as the trainer's CUDA graph: the 15
+        CUDA ops with the most device time and the device's idle share;
+        the same 5 steps of the eager loop beside it (idle share only, no
+        trace written)."""
+        from rvo3d_tpu_torch.algo.rollout import make_rollout, rollout_epoch
         from rvo3d_tpu_torch.utils.profiler import trace
 
         cfg_p = dataclasses.replace(run_cfg, train=dataclasses.replace(
             run_cfg.train, steps_per_epoch=PROFILE_STEPS))
         trainer = Trainer(cfg_p, run_world, device=dev)
         trainer.ac.load_state_dict(product["state_dict"])
+        roll = make_rollout(trainer.ac, run_world, cfg_p.env, cfg_p.train)
         keep = {}
-        with kernel_inputs_kept(mg, keep):   # warm-up; the profiled steps' rows
-            carry, _ = rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train,
-                                     trainer.carry)
+        with kernel_inputs_kept(mg, keep):   # warm-up and capture; the steps' rows
+            carry, _ = roll(trainer.carry)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        carry, _ = rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+        carry, _ = roll(carry)
         torch.cuda.synchronize()
         plain_wall_ms = 1e3 * (time.perf_counter() - t0)     # the same steps unprofiled
         mg.launches = 0
         t0 = time.perf_counter()
         with trace(PROFILE_DIR) as prof:
-            carry, _ = rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+            carry, _ = roll(carry)
             torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        launches_by_phase["profile_rollout_step"] = mg.launches
+        launches = launches_by_phase["profile_rollout_step"] = mg.launches
         at_rows = kernel_at_kept_rows(
             mg, keep, want=(cfg_p.train.num_envs * cfg_p.env.num_drones,))
 
         def device_us(e):
             return getattr(e, "self_device_time_total", None) or getattr(
                 e, "self_cuda_time_total", 0.0)
-        ops = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
-        ops.sort(key=device_us, reverse=True)
+
+        def cuda_ops(p):
+            ops = [e for e in p.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+            return sorted(ops, key=device_us, reverse=True)
+        ops = cuda_ops(prof)
         busy_ms = sum(device_us(e) for e in ops) / 1e3
+        # the eager loop over the same steps, for its idle share
+        rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+        torch.cuda.synchronize()
+        eager_wall_ms = 1e3 * (time.perf_counter() - t0)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as ep:
+            rollout_epoch(trainer.ac, run_world, cfg_p.env, cfg_p.train, carry)
+            torch.cuda.synchronize()
+        eager_ops = cuda_ops(ep)
+        eager_busy_ms = sum(device_us(e) for e in eager_ops) / 1e3
         top = [{"name": e.key, "device_ms": device_us(e) / 1e3,
                 "launches_per_step": e.count / PROFILE_STEPS} for e in ops[:15]]
         gru = [e.key for e in ops if "masked_gru" in e.key]
         out = {"steps": PROFILE_STEPS, "lanes": cfg_p.train.num_envs,
-               "drones": cfg_p.env.num_drones, "wall_ms_profiled": wall_ms,
+               "drones": cfg_p.env.num_drones, "path": "CUDA graph replays",
+               "wall_ms_profiled": wall_ms,
                "wall_ms_unprofiled": plain_wall_ms, "device_busy_ms": busy_ms,
                "device_idle_share": 1.0 - busy_ms / plain_wall_ms,
                "device_idle_share_profiled": 1.0 - busy_ms / wall_ms,
                "cuda_ops": len(ops),
                "launches_per_step": sum(e.count for e in ops) / PROFILE_STEPS,
+               "eager": {"wall_ms_unprofiled": eager_wall_ms,
+                         "device_busy_ms": eager_busy_ms,
+                         "device_idle_share": 1.0 - eager_busy_ms / eager_wall_ms,
+                         "launches_per_step": sum(e.count for e in eager_ops)
+                         / PROFILE_STEPS},
                "top15_by_device_time": top, "masked_gru_in_trace": gru,
-               "gru_launches": mg.launches, "kernel_at_path_rows": at_rows, "atol": ATOL,
+               "gru_launches": launches, "kernel_at_path_rows": at_rows, "atol": ATOL,
                "trace": os.path.relpath(os.path.join(PROFILE_DIR, "trace.json"), REPO),
                "card": smi}
-        if not gru or mg.launches != PROFILE_STEPS:
+        if not gru or launches != PROFILE_STEPS:
             raise AssertionError(f"the masked GRU kernel is not in the trace: {out}")
         return out
-    run_phase("profile_rollout_step", profile_rollout_step)
+    profiled = run_phase("profile_rollout_step", profile_rollout_step)
+
+    # ---- the four step loops as CUDA graphs (utils/graphs.py) against their
+    # eager bodies on the card, at the main path's sizes: every leaf equal
+    # bit for bit; times in turns (graphed, eager, eager, graphed) ----
+    def graphs_phase():
+        from rvo3d_tpu_torch.algo.evaluator import eval_chunk, init_eval_carry, make_eval_chunk
+        from rvo3d_tpu_torch.algo.rollout import make_rollout, rollout_epoch
+        from rvo3d_tpu_torch.bench import core as bcore
+        from rvo3d_tpu_torch.bench.flagship import flagship_world
+        from rvo3d_tpu_torch.env.env import reset
+
+        mg.launches = 0
+        problems, out = [], {"card": smi}
+
+        def held(name, graphed, eager):
+            err, differ = tree_diff(graphed, eager)
+            if err != 0.0 or differ:
+                problems.append(f"{name}: max |graph - eager| {err}, differing {differ}")
+            return {"max_abs_diff": err, "differing_leaves": differ}
+
+        def in_turns(fns, timer):
+            got = {k: [] for k in fns}
+            for k in list(fns) + list(fns)[::-1]:
+                got[k].append(timer(fns[k]))
+            return got
+
+        # a replayed launch held to plain: each graphed loop that flies the
+        # policy, 3 steps (warm-up, capture and replay, replay) at the path's
+        # row counts, in loops of its own (the copies of the kernel's inputs
+        # and output are nodes of their graphs, not of the timed ones)
+        srv = PolicyServer.from_checkpoint(PRODUCT_PARAMS, device=dev)
+        ekw = dict(max_ep_len=150, std_factor=run_cfg.train.std_factor_eval,
+                   action_mode=run_cfg.train.action_mode)
+        cfg_r = dataclasses.replace(run_cfg, train=dataclasses.replace(
+            run_cfg.train, steps_per_epoch=CUT_T))
+        trainer = Trainer(cfg_r, run_world, device=dev)
+        trainer.ac.load_state_dict(product["state_dict"])
+        rng = np.random.default_rng(SEED)
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(SEED)
+
+        def served(b):
+            one = PolicyServer(srv.ac)
+            obs = (rng.normal(size=(b, 12)).astype(np.float32),
+                   rng.normal(size=(b, 10, 9)).astype(np.float32), rng.random((b, 10)) > 0.5)
+            return lambda: [one.act(*obs) for _ in range(3)]
+        three = dataclasses.replace(cfg_r.train, steps_per_epoch=3)
+        replay_runs = {
+            f"eval_lanes{e}": (lambda e=e: make_eval_chunk(
+                srv.ac, run_world, run_cfg.env, chunk=3, **ekw)(
+                    init_eval_carry(run_world, run_cfg.env, e), gen()))
+            for e in (128, 256)}
+        replay_runs["rollout_lanes128"] = lambda: make_rollout(
+            trainer.ac, run_world, cfg_r.env, three)(trainer.snapshot()[3])
+        replay_runs.update({f"act_b{b}": served(b) for b in (1, 64, 4096)})
+        replayed = {}
+        for name, run in replay_runs.items():
+            rep = {}
+            with kernel_inputs_kept(mg, {}, rep):
+                run()
+            torch.cuda.synchronize()
+            replayed[name] = kernel_at_replayed(mg, rep)
+        out["kernel_at_replayed_launch"] = replayed
+
+        # the bench chunk: bench.py's size, float64 and float32
+        wd8 = flagship_world()
+        p8 = EnvParams(num_drones=wd8["drone_num"])
+        lanes, steps = int(BENCH_SIZE["RVO3D_BENCH_ENVS"]), int(BENCH_SIZE["RVO3D_BENCH_STEPS"])
+        bench = {}
+        for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+            w = bcore.world_spec(wd8, dev, dt)
+            s0 = reset(w, p8, lead=(lanes,))
+            chunk = bcore.make_chunk(w, p8)
+            bench[name] = held(f"bench chunk {name}", chunk(s0, steps),
+                               bcore.run_chunk(w, s0, p8, steps))
+        secs = in_turns({"graphed": lambda: chunk(s0, steps),
+                         "eager": lambda: bcore.run_chunk(w, s0, p8, steps)},
+                        lambda fn: bcore.best_seconds(fn, dev, 2))
+        bench["env_steps_per_s"] = {k: [lanes * steps / x for x in v] for k, v in secs.items()}
+        sweep = {}
+        for e in (2048, 4096, 8192, 16384):
+            se = reset(w, p8, lead=(e,))
+            chunk = bcore.make_chunk(w, p8)
+            t = in_turns({"graphed": lambda: chunk(se, 60),
+                          "eager": lambda: bcore.run_chunk(w, se, p8, 60)},
+                         lambda fn: bcore.best_seconds(fn, dev, 2))
+            sweep[str(e)] = {k: [1e3 * x / 60 for x in v] for k, v in t.items()}
+        bench["sweep_step_ms"] = sweep
+        out["bench_chunk"] = bench
+
+        # the eval chunk: the w16_r4 product at 128 lanes, chunk 40
+        ev = {}
+        for e in (128, 256):
+            c0 = init_eval_carry(run_world, run_cfg.env, e)
+            chunk_fn = make_eval_chunk(srv.ac, run_world, run_cfg.env, chunk=40, **ekw)
+            g = chunk_fn(c0, gen())
+            if e == 128:
+                eg = eval_chunk(srv.ac, run_world, run_cfg.env, c0, gen(), 40, **ekw)
+                ev["lanes128"] = held("eval chunk", g, eg)
+                rec = g[1]
+                ev["lanes128"]["records"] = {
+                    "ended": int(rec.ended.sum()), "success": int(rec.success[rec.ended].sum()),
+                    "ep_len_sum": int(rec.ep_len[rec.ended].sum())}
+            t = in_turns({"graphed": lambda: chunk_fn(c0, gen()),
+                          "eager": lambda: eval_chunk(srv.ac, run_world, run_cfg.env, c0,
+                                                      gen(), 40, **ekw)},
+                         lambda fn: bcore.best_seconds(fn, dev, 1))
+            ev[f"env_steps_per_s_lanes{e}"] = {k: [e * 40 / x for x in v]
+                                               for k, v in t.items()}
+        out["eval_chunk"] = ev
+
+        # the rollout: three epochs at w16_r4's width, T cut to CUT_T
+        roll = make_rollout(trainer.ac, run_world, cfg_r.env, cfg_r.train)
+        carries = [trainer.snapshot()[3], trainer.snapshot()[3]]
+        ro, times = {}, {"graphed": [], "eager": []}
+        for epoch in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gc, gb = roll(carries[0])
+            gb = tuple(x.clone() for x in gb)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ec, eb = rollout_epoch(trainer.ac, run_world, cfg_r.env, cfg_r.train, carries[1])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ro[f"epoch{epoch}"] = held(f"rollout epoch {epoch}",
+                                       (gc._replace(generator=None), gb),
+                                       (ec._replace(generator=None), tuple(eb)))
+            if epoch:                       # epoch 0 warms up and captures
+                times["graphed"].append(1e3 * (t1 - t0) / CUT_T)
+                times["eager"].append(1e3 * (t2 - t1) / CUT_T)
+            carries = [gc, ec]
+        ro.update(lanes=cfg_r.train.num_envs, drones=cfg_r.env.num_drones, steps=CUT_T,
+                  step_ms=times,
+                  device_idle_share_graphed=profiled["device_idle_share"],
+                  device_idle_share_eager=profiled["eager"]["device_idle_share"],
+                  idle_share_source="profile_rollout_step (utils/profiler.trace, "
+                                    f"{PROFILE_STEPS} steps)")
+        out["rollout"] = ro
+
+        # the served act: B = 1, 64, 4096, deterministic and stochastic
+        act = {}
+        for det in (True, False):
+            srv.deterministic = det
+            for b in (1, 64, 4096):
+                obs = (rng.normal(size=(b, 12)).astype(np.float32),
+                       rng.normal(size=(b, 10, 9)).astype(np.float32),
+                       rng.random((b, 10)) > 0.5)
+
+                def eager(seed=b):
+                    x = [torch.as_tensor(o, device=dev) for o in obs]
+                    eps = None if det else torch.randn(
+                        b, 3, generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+                    return srv.policy(*x, eps).cpu().numpy()
+
+                def graphed(seed=b):
+                    return srv.act(*obs, generator=None if det else torch.Generator(
+                        device=dev).manual_seed(seed))
+                tag = f"{'det' if det else 'stochastic'}_b{b}"
+                a_g, a_e = graphed(), eager()
+                d = float(np.abs(a_g - a_e).max())
+                if not np.array_equal(a_g, a_e):
+                    problems.append(f"act {tag}: max |graph - eager| {d}")
+                act[tag] = {"max_abs_diff": d, **{
+                    f"{k}_p50_ms": v for k, v in in_turns(
+                        {"graphed": graphed, "eager": eager},
+                        lambda fn: p50_ms(fn, iters=30)).items()}}
+        srv.deterministic = True
+        out["act"] = act
+        out["gru_launches"] = launches_by_phase["graphs"] = mg.launches
+        if problems:
+            raise AssertionError(f"{problems}: {out}")
+        return out
+
+    def graphs_held():
+        """graphs_phase with the eager warm-up launches kept and the kernel
+        held to plain at the path's rows: 2048 and 4096 (the eval chunk at
+        128 and 256 lanes, the rollout at 128, 16 drones a lane), 1, 64 and
+        4096 (the served batches)."""
+        keep = {}
+        with kernel_inputs_kept(mg, keep):
+            out = graphs_phase()
+        out["kernel_at_path_rows"] = kernel_at_kept_rows(mg, keep, want=(1, 64, 2048, 4096))
+        out["atol"] = ATOL
+        return out
+    run_phase("graphs", graphs_held)
 
     def worldgen_parity():
         """`cli worldgen` of a 16-drone world at world16_dense's map size,
@@ -2097,29 +2387,33 @@ def main(argv=None) -> int:
         """`cli bench` in this process at bench.py's size: its line, the
         spread between the lanes of the last timed chunk's final state (all
         lanes fly one deterministic trajectory, so any spread is an op that
-        mixes lanes; reported, not gated), and the timed loop in float64 on
-        the card against the CPU."""
+        mixes lanes; reported, not gated), and the timed loop in float64,
+        graphed on the card, against the CPU's eager loop."""
         os.environ.update(BENCH_SIZE)
-        finals, real = [], bench_core.run_chunk
+        finals, real = [], bench_core.make_chunk
 
-        def run_chunk(*a):
-            finals.append(real(*a))
-            return finals[-1]
-        bench_core.run_chunk = run_chunk
+        def make_chunk(*a):
+            chunk = real(*a)
+
+            def run(state, steps):
+                finals.append(chunk(state, steps))
+                return finals[-1]
+            return run
+        bench_core.make_chunk = make_chunk
         mg.launches = 0
         try:
             rc, lines = quiet_main(cli.main, ["bench", "--device", "cuda"])
         finally:
-            bench_core.run_chunk = real
+            bench_core.make_chunk = real
         launches_by_phase["bench_env"] = mg.launches
         print(lines[-1], flush=True)
         line = json.loads(lines[-1])
         wd = flagship_world()
         p8 = EnvParams(num_drones=wd["drone_num"])
         runs = []
-        for d in (dev, "cpu"):
+        for d in (dev, "cpu"):     # the card's graphed chunk, the CPU's eager loop
             w = bench_core.world_spec(wd, d, torch.float64)
-            runs.append(bench_core.run_chunk(w, reset(w, p8, lead=(4,)), p8, 100))
+            runs.append(bench_core.make_chunk(w, p8)(reset(w, p8, lead=(4,)), 100))
         err, differ = state_diff(*runs)
         problems = []
         if rc != 0 or set(line) != BENCH_KEYS:

@@ -18,6 +18,13 @@ nothing in it reads back from the device. With a lane world
 (worlds/multi.py) lane e steps its own scenario. Under a data-parallel
 mesh (parallel/mesh.py) the carry holds this rank's lanes, and every draw
 is made at the global lane count and cut to them (parallel/sharding.py).
+
+One step is rollout_step, with its standard normals drawn before it
+(step_draws: the policy's sample, then the control noise). rollout_epoch
+runs it eagerly; make_rollout captures it once as a CUDA graph on a card
+and replays it T times an epoch (utils/graphs.py), and gives the eager
+loop on the CPU and under tensor parallelism (mesh.model > 1), whose
+forward makes gloo all_reduces that a graph cannot hold.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
 from rvo3d_tpu_torch.env.state import DroneState, WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
 from rvo3d_tpu_torch.parallel.sharding import LaneDraws
+from rvo3d_tpu_torch.utils import graphs
+
 
 class EpisodeStats(NamedTuple):
     """Per-agent completed-episode aggregates, all [N]."""
@@ -45,18 +54,20 @@ class EpisodeStats(NamedTuple):
     collision_count: torch.Tensor   # episodes ended by collision
 
     @staticmethod
-    def zero(n: int, device=None) -> "EpisodeStats":
-        def z():
-            return torch.zeros((n,), dtype=torch.float32, device=device)
-        inf = torch.full((n,), float("inf"), dtype=torch.float32, device=device)
-        return EpisodeStats(z(), z(), inf, -inf, z(), z(), z())
+    def zero(n: int, device=None, ret_dtype=torch.float32) -> "EpisodeStats":
+        """Counts in float32; the return fields in `ret_dtype`, float32 or
+        the env's float64, the dtype recording returns gives them."""
+        def z(dtype=torch.float32):
+            return torch.zeros((n,), dtype=dtype, device=device)
+        inf = torch.full((n,), float("inf"), dtype=ret_dtype, device=device)
+        return EpisodeStats(z(), z(ret_dtype), inf, -inf, z(), z(), z())
 
     def record(self, mask: torch.Tensor, ep_ret: torch.Tensor,
                ep_len: torch.Tensor, finished: torch.Tensor,
                collided: torch.Tensor) -> "EpisodeStats":
         """mask/ep_ret/ep_len/finished/collided: [E, N]; reduce over E."""
         m = mask.to(torch.float32)
-        inf = torch.tensor(float("inf"), dtype=ep_ret.dtype, device=ep_ret.device)
+        inf = float("inf")
         return EpisodeStats(
             count=self.count + m.sum(0),
             ret_sum=self.ret_sum + (ep_ret * m).sum(0),
@@ -110,7 +121,7 @@ def init_rollout_carry(world: WorldSpec, p: EnvParams, num_envs: int,
         ep_len=torch.zeros((num_envs, n), dtype=torch.int32, device=world.device),
         ep_ret=torch.zeros((num_envs, n), dtype=dtype, device=world.device),
         generator=generator,
-        stats=EpisodeStats.zero(n, world.device),
+        stats=EpisodeStats.zero(n, world.device, torch.promote_types(torch.float32, dtype)),
     )
 
 
@@ -132,93 +143,147 @@ def _empty_batch(carry: RolloutCarry, t_len: int, act_dim: int) -> RolloutBatch:
         cut=buf(obs_mask, (e,), torch.bool))
 
 
+def _lane_draws(carry: RolloutCarry, cfg: TrainConfig, mesh) -> LaneDraws:
+    gen = carry.generator
+    if mesh is None:
+        return LaneDraws(gen, slice(None), carry.ep_len.shape[0])
+    return LaneDraws(gen, mesh.lanes(cfg.num_envs), cfg.num_envs)
+
+
+def step_draws(draws: LaneDraws, carry: RolloutCarry, env_p: EnvParams, act_dim: int):
+    """One step's standard normals, in the order the step uses them: the
+    policy's sample [E, N, act_dim] float32, then (env_p.noise) the control
+    noise in the env's dtype, else None."""
+    obs_self, pos = carry.obs[0], carry.env_state.pos
+    eps = draws.randn(obs_self.shape[:-1] + (act_dim,), torch.float32, pos.device)
+    noise = draws.randn(pos.shape, pos.dtype, pos.device) if env_p.noise else None
+    return eps, noise
+
+
+def rollout_step(ac: ActorCritic, world: WorldSpec, env_p: EnvParams, cfg: TrainConfig,
+                 carry: RolloutCarry, eps: torch.Tensor, noise, epoch_ended
+                 ) -> Tuple[RolloutCarry, RolloutBatch]:
+    """One step of every lane with the draws of step_draws. `epoch_ended`
+    is a bool, or a bool tensor of shape [1] (the graph's device flag).
+    Returns the carry after the step and its records, leaves [E, N, ...]
+    in RolloutBatch's order."""
+    env_state, (obs_self, obs_nbr, obs_mask) = carry.env_state, carry.obs
+    ep_len, ep_ret, stats = carry.ep_len, carry.ep_ret, carry.stats
+    ps = ac.step(obs_self, obs_nbr, obs_mask, 1.0, eps=eps)
+    a_inc = geo.rnd(ps.action, 2, env_p.parity_rounding)
+    if cfg.action_mode == "direct":
+        abs_action = a_inc
+    else:
+        abs_action = geo.rnd(env_p.acceler * a_inc + env_state.vel, 2,
+                             env_p.parity_rounding)
+    env_state, out = step(world, env_state, abs_action, env_p, noise)
+
+    ep_len = ep_len + 1
+    ep_ret = ep_ret + out.reward
+
+    # ---- lifecycle flags: terminal reads ep_len before any reset ----
+    arrive_all = torch.all(out.finish, dim=1)                   # [E]
+    terminal = torch.any(out.finish, dim=1) | (
+        torch.amax(ep_len, dim=1) > cfg.max_ep_len)
+
+    # ---- collision branch: per-drone resets, no cut ----
+    col_mask = out.done                                          # [E, N]
+    none = torch.zeros_like(col_mask)
+    stats = stats.record(col_mask, ep_ret, ep_len, finished=none,
+                         collided=col_mask)
+    env_state = reset_where(world, env_state, col_mask)
+    ep_ret = torch.where(col_mask, 0.0, ep_ret)
+    ep_len = torch.where(col_mask, 0, ep_len)
+
+    # ---- full-reset branch ----
+    full = arrive_all | epoch_ended                              # [E]
+    full_mask = full[:, None].expand_as(col_mask)
+    stats = stats.record(full_mask & arrive_all[:, None], ep_ret, ep_len,
+                         finished=arrive_all[:, None].expand_as(col_mask),
+                         collided=none)
+    env_state = reset_where(world, env_state, full_mask)
+    ep_ret = torch.where(full_mask, 0.0, ep_ret)
+    ep_len = torch.where(full_mask, 0, ep_len)
+
+    # ---- terminal branch (elif: only where not full); ep_len now
+    # reads after the collision and full resets ----
+    term = ~full & terminal                                      # [E]
+    term_mask = term[:, None] & (out.finish | (ep_len > cfg.max_ep_len))
+    stats = stats.record(term_mask, ep_ret, ep_len, finished=out.finish,
+                         collided=none)
+    env_state = reset_where(world, env_state, term_mask)
+    ep_ret = torch.where(term_mask, 0.0, ep_ret)
+    ep_len = torch.where(term_mask, 0, ep_len)
+
+    cut = arrive_all | terminal | epoch_ended                    # [E]
+
+    # ---- store (obs before the step, the rounded action, the logp
+    # of the unrounded sample) ----
+    rec = RolloutBatch(obs_self, obs_nbr, obs_mask, a_inc, out.reward, ps.value,
+                       ps.logp, cut)
+
+    # ---- next obs: recomputed for lanes that reset anything ----
+    any_reset = torch.any(col_mask, dim=1) | full | term         # [E]
+    re_out, env_state = observe(world, env_state, env_p)
+    r3 = any_reset[:, None, None]
+    obs = (torch.where(r3, re_out.obs_self, out.obs_self),
+           torch.where(r3[..., None], re_out.obs_nbr, out.obs_nbr),
+           torch.where(r3, re_out.obs_mask, out.obs_mask))
+    carry = carry._replace(env_state=env_state, obs=obs, ep_len=ep_len, ep_ret=ep_ret,
+                           stats=stats)
+    return carry, rec
+
+
 @torch.no_grad()
 def rollout_epoch(ac: ActorCritic, world: WorldSpec, env_p: EnvParams,
                   cfg: TrainConfig, carry: RolloutCarry,
                   lane_worlds=None, mesh=None) -> Tuple[RolloutCarry, RolloutBatch]:
-    """Collect cfg.steps_per_epoch steps across the carry's lanes with the
-    policy's current parameters. lane_worlds: an optional lane world
-    (leaves [E, ...]); `world` then gives only the static shapes. mesh: a
-    parallel.Mesh whose rank holds its lanes of cfg.num_envs in the carry
-    (and in lane_worlds)."""
+    """Collect cfg.steps_per_epoch eager steps across the carry's lanes
+    with the policy's current parameters: the loop on CPU tensors and under
+    tensor parallelism, and the plain version the card's graph is held
+    against. lane_worlds: an optional lane world (leaves [E, ...]); `world`
+    then gives only the static shapes. mesh: a parallel.Mesh whose rank
+    holds its lanes of cfg.num_envs in the carry (and in lane_worlds)."""
     if lane_worlds is not None:
         world = lane_worlds
     t_len = cfg.steps_per_epoch
     batch = _empty_batch(carry, t_len, ac.act_dim)
-    gen = carry.generator
-    draws = (LaneDraws(gen, slice(None), carry.ep_len.shape[0]) if mesh is None
-             else LaneDraws(gen, mesh.lanes(cfg.num_envs), cfg.num_envs))
-    env_state, (obs_self, obs_nbr, obs_mask) = carry.env_state, carry.obs
-    ep_len, ep_ret, stats = carry.ep_len, carry.ep_ret, carry.stats
-
+    draws = _lane_draws(carry, cfg, mesh)
     for t in range(t_len):
-        eps = draws.randn(obs_self.shape[:-1] + (ac.act_dim,), torch.float32,
-                          obs_self.device)
-        ps = ac.step(obs_self, obs_nbr, obs_mask, 1.0, eps=eps)
-        a_inc = geo.rnd(ps.action, 2, env_p.parity_rounding)
-        if cfg.action_mode == "direct":
-            abs_action = a_inc
-        else:
-            abs_action = geo.rnd(env_p.acceler * a_inc + env_state.vel, 2,
-                                 env_p.parity_rounding)
-        noise = (draws.randn(abs_action.shape, env_state.pos.dtype, abs_action.device)
-                 if env_p.noise else None)
-        env_state, out = step(world, env_state, abs_action, env_p, noise)
-
-        ep_len = ep_len + 1
-        ep_ret = ep_ret + out.reward
-
-        # ---- lifecycle flags: terminal reads ep_len before any reset ----
-        epoch_ended = t == t_len - 1
-        arrive_all = torch.all(out.finish, dim=1)                   # [E]
-        terminal = torch.any(out.finish, dim=1) | (
-            torch.amax(ep_len, dim=1) > cfg.max_ep_len)
-
-        # ---- collision branch: per-drone resets, no cut ----
-        col_mask = out.done                                          # [E, N]
-        none = torch.zeros_like(col_mask)
-        stats = stats.record(col_mask, ep_ret, ep_len, finished=none,
-                             collided=col_mask)
-        env_state = reset_where(world, env_state, col_mask)
-        ep_ret = torch.where(col_mask, 0.0, ep_ret)
-        ep_len = torch.where(col_mask, 0, ep_len)
-
-        # ---- full-reset branch ----
-        full = arrive_all | epoch_ended                              # [E]
-        full_mask = full[:, None].expand_as(col_mask)
-        stats = stats.record(full_mask & arrive_all[:, None], ep_ret, ep_len,
-                             finished=arrive_all[:, None].expand_as(col_mask),
-                             collided=none)
-        env_state = reset_where(world, env_state, full_mask)
-        ep_ret = torch.where(full_mask, 0.0, ep_ret)
-        ep_len = torch.where(full_mask, 0, ep_len)
-
-        # ---- terminal branch (elif: only where not full); ep_len now
-        # reads after the collision and full resets ----
-        term = ~full & terminal                                      # [E]
-        term_mask = term[:, None] & (out.finish | (ep_len > cfg.max_ep_len))
-        stats = stats.record(term_mask, ep_ret, ep_len, finished=out.finish,
-                             collided=none)
-        env_state = reset_where(world, env_state, term_mask)
-        ep_ret = torch.where(term_mask, 0.0, ep_ret)
-        ep_len = torch.where(term_mask, 0, ep_len)
-
-        cut = arrive_all | terminal | epoch_ended                    # [E]
-
-        # ---- store (obs before the step, the rounded action, the logp
-        # of the unrounded sample) ----
-        for buf, x in zip(batch, (obs_self, obs_nbr, obs_mask, a_inc,
-                                  out.reward, ps.value, ps.logp, cut)):
+        eps, noise = step_draws(draws, carry, env_p, ac.act_dim)
+        carry, rec = rollout_step(ac, world, env_p, cfg, carry, eps, noise,
+                                  t == t_len - 1)
+        for buf, x in zip(batch, rec):
             buf[t] = x
-
-        # ---- next obs: recomputed for lanes that reset anything ----
-        any_reset = torch.any(col_mask, dim=1) | full | term         # [E]
-        re_out, env_state = observe(world, env_state, env_p)
-        r3 = any_reset[:, None, None]
-        obs_self = torch.where(r3, re_out.obs_self, out.obs_self)
-        obs_nbr = torch.where(r3[..., None], re_out.obs_nbr, out.obs_nbr)
-        obs_mask = torch.where(r3, re_out.obs_mask, out.obs_mask)
-
-    carry = RolloutCarry(env_state=env_state, obs=(obs_self, obs_nbr, obs_mask),
-                         ep_len=ep_len, ep_ret=ep_ret, generator=gen, stats=stats)
     return carry, batch
+
+
+def make_rollout(ac: ActorCritic, world: WorldSpec, env_p: EnvParams, cfg: TrainConfig,
+                 lane_worlds=None, mesh=None):
+    """rollout(carry) -> (carry, batch). On a card (data-parallel ranks
+    included) rollout_step captured once as a CUDA graph over a static
+    carry, its draws made outside it and its records stored into the batch
+    at a device step index, whose last value is the epoch-end flag
+    (utils/graphs.GraphedLoop), replayed T times an epoch: the batch
+    buffers are allocated once and reused, so an epoch's batch holds until
+    the next epoch; the parameters are read in place, so the capture holds
+    across in-place updates and load_state_dict. rollout_epoch on the CPU
+    and under tensor parallelism (mesh.model > 1: the forward's gloo
+    all_reduces cannot be captured)."""
+    if not graphs.on_card(world.device) or (mesh is not None and mesh.model > 1):
+        return lambda carry: rollout_epoch(ac, world, env_p, cfg, carry, lane_worlds, mesh)
+    t_len = cfg.steps_per_epoch
+    step_world = world if lane_worlds is None else lane_worlds
+    loop = graphs.GraphedLoop(
+        lambda c, draws, t: rollout_step(ac, step_world, env_p, cfg, c, *draws,
+                                         t == t_len - 1),
+        world.device,
+        draw=lambda c, lane_draws: step_draws(lane_draws, c, env_p, ac.act_dim),
+        records=lambda c: _empty_batch(c, t_len, ac.act_dim))
+
+    def rollout(carry: RolloutCarry) -> Tuple[RolloutCarry, RolloutBatch]:
+        # the static carry holds no generator: the draws come from this one
+        out, batch = loop(carry._replace(generator=None), t_len,
+                          _lane_draws(carry, cfg, mesh))
+        return out._replace(generator=carry.generator), batch
+    return rollout

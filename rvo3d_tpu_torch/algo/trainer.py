@@ -3,11 +3,15 @@
 (counterpart of rvo3d_tpu/algo/trainer.py; reference train_process.py and
 multi_ppo.training_loop).
 
-The epoch runs eagerly on the trainer's device. The parameters and the
-optimizer states are updated in place, so the rollback to the last finite
-epoch keeps cloned snapshots of the parameters, both optimizer states and
-the env carry (the JAX trainer's snapshot is free: its arrays are
-immutable).
+On a card the rollout replays one step captured as a CUDA graph
+(rollout.make_rollout: one capture per trainer, valid across epochs, since
+the parameters are updated and restored in place; a curriculum stage
+builds a new trainer and with it a new capture); GAE and the PPO update
+run eagerly, as the whole epoch does on the CPU and under tensor
+parallelism. The parameters and the optimizer states are updated in place,
+so the rollback to the last finite epoch keeps cloned snapshots of the
+parameters, both optimizer states and the env carry (the JAX trainer's
+snapshot is free: its arrays are immutable).
 
 Data-parallel over env lanes (`mesh`, parallel/mesh.py): each rank steps
 its block of the lanes (and of the lane world), drawing every random
@@ -32,7 +36,7 @@ from rvo3d_tpu_torch.algo.gae import gae_advantages
 from rvo3d_tpu_torch.algo.ppo import (AgentData, PPOState, UpdateMetrics,
                                       make_optimizers, ppo_update)
 from rvo3d_tpu_torch.algo.rollout import (EpisodeStats, RolloutCarry,
-                                          init_rollout_carry, rollout_epoch)
+                                          init_rollout_carry, make_rollout)
 from rvo3d_tpu_torch.config import Config
 from rvo3d_tpu_torch.env.state import WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
@@ -69,14 +73,14 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
     and the batch and the stats are gathered before GAE."""
     env_p, tr = cfg.env, cfg.train
     state = PPOState(ac, pi_opt, vf_opt)
+    rollout = make_rollout(ac, world, env_p, tr, lane_worlds=lane_worlds, mesh=mesh)
 
     def train_epoch(carry: RolloutCarry, generator: torch.Generator,
                     perm=None, offsets=None,
                     on_phase: Optional[PhaseHook] = None) -> EpochOutput:
         hook = on_phase or (lambda name, data: None)
         hook("rollout", None)
-        carry, batch = rollout_epoch(ac, world, env_p, tr, carry,
-                                     lane_worlds=lane_worlds, mesh=mesh)
+        carry, batch = rollout(carry)
         stats = carry.stats
         if mesh is not None:
             batch = type(batch)(*[gather_lanes(x, mesh, axis=1) for x in batch])
@@ -90,8 +94,8 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
         hook("update", data)
         upd = ppo_update(ac, tr, pi_opt, vf_opt, data, generator, perm, offsets)
         hook("end", None)
-        carry = carry._replace(stats=EpisodeStats.zero(stats.count.shape[0],
-                                                       stats.count.device))
+        carry = carry._replace(stats=EpisodeStats.zero(
+            stats.count.shape[0], stats.count.device, stats.ret_sum.dtype))
         return EpochOutput(ppo_state=state, carry=carry, stats=stats,
                            update_metrics=upd, mean_reward=torch.mean(batch.rew))
 

@@ -8,7 +8,8 @@ the analytic waypoint controller, so drones fly, interact, collide and
 reset: the full step pipeline, all-pairs VO observation assembly and the
 per-drone lifecycle included. Baseline: the same world stepped by the
 NumPy oracle (env/oracle.py) on the host, one env in one process, as the
-reference runs.
+reference runs. On a card the timed loop replays one step captured as a
+CUDA graph (make_chunk), as bench.py times one jitted scan.
 
 The environment variables RVO3D_BENCH_ENVS (16384), RVO3D_BENCH_STEPS
 (100) and RVO3D_BENCH_REPEATS (3) set the size, as for bench.py. The last
@@ -29,6 +30,7 @@ import torch
 from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.env.env import reset, reset_where, step
 from rvo3d_tpu_torch.env.state import DroneState, WorldSpec, make_world_spec
+from rvo3d_tpu_torch.utils import graphs
 from rvo3d_tpu_torch.utils.device import resolve_device
 from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
 
@@ -76,35 +78,54 @@ def world_spec(world_dict: dict, device, dtype=torch.float32) -> WorldSpec:
 
 
 @torch.no_grad()
-def run_chunk(world: WorldSpec, state: DroneState, p: EnvParams,
-              steps: int) -> DroneState:
-    """`steps` steps of every lane: the analytic controller (bench.py:44-59,
+def bench_step(world: WorldSpec, state: DroneState, p: EnvParams) -> DroneState:
+    """One step of every lane: the analytic controller (bench.py:44-59,
     equal to waypoint_controller at cruise 0.8 and dt 1), `step` with its
     output as the absolute action unchanged (bench.py:62), then the
     trainer's lifecycle, a reset of collided or finished drones. `world`
     is one world or a lane world (worlds/multi.py)."""
+    act = waypoint_controller(state, world)
+    state, out = step(world, state, act, p)
+    return reset_where(world, state, out.done | out.finish)
+
+
+def run_chunk(world: WorldSpec, state: DroneState, p: EnvParams,
+              steps: int) -> DroneState:
+    """`steps` eager steps of bench_step: the loop on CPU tensors, and the
+    plain version the card's graph is held against."""
     for _ in range(steps):
-        act = waypoint_controller(state, world)
-        state, out = step(world, state, act, p)
-        state = reset_where(world, state, out.done | out.finish)
+        state = bench_step(world, state, p)
     return state
+
+
+def make_chunk(world: WorldSpec, p: EnvParams):
+    """chunk(state, steps) -> state, the loop the benchmarks time: on a card
+    bench_step captured once as a CUDA graph and replayed `steps` times a
+    call (utils/graphs.GraphedLoop; the static state's shape is fixed by
+    the first call), run_chunk on the CPU."""
+    if graphs.on_card(world.device):
+        loop = graphs.GraphedLoop(lambda s, x, t: (bench_step(world, s, p), None),
+                                  world.device)
+        return lambda state, steps: loop(state, steps)[0]
+    return lambda state, steps: run_chunk(world, state, p, steps)
 
 
 def bench_env(world_dict: dict, num_envs: int, steps: int, repeats: int = 3,
               device="cuda") -> Tuple[float, List[float]]:
     """(best env-steps/s, every repeat's) of `num_envs` lanes reset alike:
-    one warm-up chunk of `steps` steps, then `repeats` timed chunks, each
-    going on from the last one's state (bench.py:28-88)."""
+    one warm-up chunk of `steps` steps (on a card it captures the step),
+    then `repeats` timed chunks, each going on from the last one's state
+    (bench.py:28-88)."""
     dev = resolve_device(device)
     world = world_spec(world_dict, dev)
     p = EnvParams(num_drones=world_dict["drone_num"])
-    state = reset(world, p, lead=(num_envs,))
-    state = run_chunk(world, state, p, steps)      # warm-up
+    chunk = make_chunk(world, p)
+    state = chunk(reset(world, p, lead=(num_envs,)), steps)      # warm-up
     sync(dev)
     rates = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        state = run_chunk(world, state, p, steps)
+        state = chunk(state, steps)
         sync(dev)
         rates.append(num_envs * steps / (time.perf_counter() - t0))
     return max(rates), rates

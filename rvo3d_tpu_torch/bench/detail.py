@@ -4,7 +4,9 @@ scripts/bench_detail.py):
   1. env-only stepping (core.py's metric) at 2048, 4096, 8192 and 16384
      lanes, 60 steps, 2 repeats
   2. policy-in-the-loop rollout: a biGRU-256 policy sampling every step,
-     then `step` and the lifecycle reset, 2048 lanes x 30 steps
+     then `step` and the lifecycle reset, 2048 lanes x 30 steps (on a card
+     one step captured as a CUDA graph and replayed, as the JAX script
+     jits its chunk)
   3. a full PPO epoch (rollout, GAE, update) of the flagship world at
      TrainConfig(steps_per_epoch=300, num_envs=32), every other field at
      its default: the per-agent update, 50 pi and 50 v iterations; the
@@ -14,7 +16,7 @@ scripts/bench_detail.py):
      script (bench_detail.py:120-165): E256_reference_schedule (256 lanes)
      and E4096_minibatch_batched (4096 lanes, the batched update with
      minibatch 32768), T = 300, 20 pi / 50 v iterations: the rollout alone
-     (algo/rollout.py, best of 3 from one carry), then the second of two
+     (algo/rollout.make_rollout, best of 3 from one carry), then the second of two
      full epochs, the update by difference; then one more E256 epoch
      traced (utils/profiler.trace) into runs_torch/bench/profiles/
 
@@ -42,6 +44,7 @@ from rvo3d_tpu_torch.config import Config, EnvParams, ModelConfig, TrainConfig
 from rvo3d_tpu_torch.env import geometry as geo
 from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.utils import graphs
 from rvo3d_tpu_torch.utils.device import resolve_device
 
 SWEEP_LANES = (2048, 4096, 8192, 16384)
@@ -64,36 +67,62 @@ def env_sweep(world_dict: dict, lanes: Sequence[int] = SWEEP_LANES, steps: int =
 
 
 @torch.no_grad()
+def policy_step(ac: ActorCritic, world, state, p: EnvParams, eps: torch.Tensor):
+    """One policy-in-the-loop step (bench_detail.py:76-87): observe, sample
+    mu + std * eps, round the action to 2 decimals, abs = rnd(acceler * a +
+    vel, 2), step, reset collided or finished drones."""
+    out, state = observe(world, state, p)
+    ps = ac.step(out.obs_self, out.obs_nbr, out.obs_mask, 1.0, eps=eps)
+    a = geo.rnd(ps.action, 2)
+    abs_a = geo.rnd(p.acceler * a + state.vel, 2)
+    state, o = step(world, state, abs_a, p)
+    return reset_where(world, state, o.done | o.finish)
+
+
+def policy_draw(state, generator: torch.Generator) -> torch.Tensor:
+    """A step's standard normals, as ActorCritic.step draws them."""
+    return torch.randn(state.vel.shape, generator=generator, dtype=torch.float32,
+                       device=state.vel.device)
+
+
 def rollout_chunk(ac: ActorCritic, world, state, p: EnvParams, steps: int,
                   generator: torch.Generator):
-    """`steps` policy-in-the-loop steps (bench_detail.py:76-87): observe,
-    sample, round the action to 2 decimals, abs = rnd(acceler * a + vel, 2),
-    step, reset collided or finished drones."""
+    """`steps` eager policy steps: the loop on CPU tensors, and the plain
+    version the card's graph (make_policy_chunk) is held against."""
     for _ in range(steps):
-        out, state = observe(world, state, p)
-        ps = ac.step(out.obs_self, out.obs_nbr, out.obs_mask, 1.0, generator)
-        a = geo.rnd(ps.action, 2)
-        abs_a = geo.rnd(p.acceler * a + state.vel, 2)
-        state, o = step(world, state, abs_a, p)
-        state = reset_where(world, state, o.done | o.finish)
+        state = policy_step(ac, world, state, p, policy_draw(state, generator))
     return state
+
+
+def make_policy_chunk(ac: ActorCritic, world, p: EnvParams):
+    """chunk(state, steps, generator) -> state: on a card policy_step
+    captured once as a CUDA graph over a static state, its draws made
+    outside it as rollout_chunk makes them (utils/graphs.GraphedLoop),
+    replayed `steps` times a call; rollout_chunk on the CPU."""
+    if not graphs.on_card(world.device):
+        return lambda state, steps, generator: rollout_chunk(ac, world, state, p, steps,
+                                                             generator)
+    loop = graphs.GraphedLoop(lambda s, eps, t: (policy_step(ac, world, s, p, eps), None),
+                              world.device, draw=policy_draw)
+    return lambda state, steps, generator: loop(state, steps, generator)[0]
 
 
 def policy_rollout(world_dict: dict, num_envs: int = 2048, steps: int = 30,
                    repeats: int = 3, device="cuda") -> float:
     """Best env-steps/s of the rollout of a biGRU-256 policy drawn from
     SEED: a warm-up chunk, then `repeats` chunks each from the same reset
-    state with the same draws (bench_detail.py:23-33, :89-90)."""
+    state with the same draws (bench_detail.py:23-33, :89-90), through
+    make_policy_chunk."""
     dev = resolve_device(device)
     world = world_spec(world_dict, dev)
     p = EnvParams(num_drones=world_dict["drone_num"])
     ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(SEED),
                      device=dev)
     state = reset(world, p, lead=(num_envs,))
+    chunk = make_policy_chunk(ac, world, p)
 
     def run():
-        return rollout_chunk(ac, world, state, p, steps,
-                             torch.Generator(device=dev).manual_seed(SEED + 1))
+        return chunk(state, steps, torch.Generator(device=dev).manual_seed(SEED + 1))
     return num_envs * steps / best_seconds(run, dev, repeats)
 
 
@@ -126,7 +155,7 @@ def train_split(world_name: str = "world_2", device="cuda", steps_per_epoch: int
     the update's by difference and both rates; one more E256 epoch is
     traced. Keys w2_<tag> for world_2, <world>_<tag> otherwise (the JAX
     script's names). The depth (T, iterations) defaults to the script's."""
-    from rvo3d_tpu_torch.algo.rollout import rollout_epoch
+    from rvo3d_tpu_torch.algo.rollout import make_rollout
     from rvo3d_tpu_torch.algo.trainer import Trainer
     from rvo3d_tpu_torch.utils.profiler import trace
     from rvo3d_tpu_torch.worlds import load_world
@@ -144,10 +173,10 @@ def train_split(world_name: str = "world_2", device="cuda", steps_per_epoch: int
                                        pi_lr=1e-6, action_mode="direct", **extra))
         tr = Trainer(cfg, wd.spec(device=dev), device=dev)
         carries = iter([tr.snapshot()[3] for _ in range(4)])
+        rollout = make_rollout(tr.ac, tr.world, cfg.env, cfg.train)
 
         def roll():
-            with torch.no_grad():
-                return rollout_epoch(tr.ac, tr.world, cfg.env, cfg.train, next(carries))
+            return rollout(next(carries))
         dt_roll = best_seconds(roll, dev, 3)
         tr.run_epoch()
         sync(dev)

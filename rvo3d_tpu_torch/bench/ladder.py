@@ -6,6 +6,8 @@ as in core.py:
   rung 5: world32_mix, 32 drones, 2048 lanes, 60 steps, two scenario
           populations in alternate lanes of one lane world
 
+Both step through core.make_chunk (on a card, one captured step replayed).
+
     python -m rvo3d_tpu_torch.bench.ladder [--device cuda]
 
 Writes runs_torch/bench/ladder_bench.json.
@@ -18,7 +20,7 @@ import json
 
 import torch
 
-from rvo3d_tpu_torch.bench.core import (bench_env, best_seconds, device_name, run_chunk,
+from rvo3d_tpu_torch.bench.core import (bench_env, best_seconds, device_name, make_chunk,
                                         write_results)
 from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.env.env import reset
@@ -60,8 +62,8 @@ def rung5(device="cuda", num_envs: int = RUNG5_LANES, steps: int = STEPS,
     lanes = rung5_lane_worlds(num_envs, dev)
     p = EnvParams(num_drones=lanes.num_drones)
     state = reset(lanes, p, (num_envs,))
-    return num_envs * steps / best_seconds(lambda: run_chunk(lanes, state, p, steps),
-                                           dev, repeats)
+    chunk = make_chunk(lanes, p)
+    return num_envs * steps / best_seconds(lambda: chunk(state, steps), dev, repeats)
 
 
 def main(argv=None) -> int:

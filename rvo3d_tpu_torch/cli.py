@@ -228,10 +228,6 @@ def cmd_train(args) -> int:
         raise SystemExit("--curriculum and --multi_worlds are not combinable (the "
                          "curriculum path rebuilds the trainer per stage on the "
                          "single world)")
-    if args.curriculum and args.mesh_model > 1:
-        raise SystemExit("--curriculum and --mesh_model > 1 are not combinable in "
-                         "rvo3d_tpu_torch (the curriculum's per-stage trainers and "
-                         "evaluations run unsharded)")
     mesh = _mesh_from_args(cfg, args)
     lead = is_coordinator()
     run_dir = _shared_run_dir(args, f"r{wd.drone_num}", mesh)
@@ -320,8 +316,11 @@ def cmd_train(args) -> int:
 
     # goal-threshold curriculum, e.g. "--curriculum 1.2:80,0.8:80,0.4:rest":
     # a fresh Trainer (a fresh carry from the seed) per stage at that
-    # stage's threshold, the PPO state carried over; evaluations at the
-    # stage's threshold, and at each stage's end at {thr, final thr}
+    # stage's threshold, the PPO state carried over (under tensor
+    # parallelism the new trainer is sharded first and takes this rank's
+    # shards); evaluations at the stage's threshold, and at each stage's end
+    # at {thr, final thr}. As on the non-curriculum path every rank
+    # gathers the policy and the checkpoint, and rank 0 evaluates and writes.
     if args.curriculum:
         stages = []
         for part in args.curriculum.split(","):
@@ -336,6 +335,8 @@ def cmd_train(args) -> int:
                 break
             cfg_stage = cfg.replace(env=dataclasses.replace(cfg.env, goal_threshold=thr))
             prev, trainer = trainer, Trainer(cfg_stage, world, device=dev, mesh=mesh)
+            if mesh is not None:
+                shard_params_tp(trainer.ppo_state, mesh)
             for dst, src in zip(trainer.ppo_state, prev.ppo_state):
                 dst.load_state_dict(src.state_dict())
             del prev
@@ -348,7 +349,10 @@ def cmd_train(args) -> int:
                 logger.log(m)
 
             def eval_stage(e, s, base=done_epochs, tr=trainer, p_stage=cfg_stage.env):
-                m = evaluate(tr.ac, tr.world, p_stage,
+                ac = full_policy(tr.ac)
+                if not lead:
+                    return
+                m = evaluate(ac, tr.world, p_stage,
                              generator=torch.Generator(device=dev).manual_seed(base + e),
                              **eval_kw)
                 _results_line(results_path,
@@ -361,14 +365,14 @@ def cmd_train(args) -> int:
                 save_checkpoint(ckpt_dir, base + e, s, c)
 
             trainer.train(epochs=remaining - 1, log_fn=log_stage if lead else _quiet,
-                          checkpoint_fn=save_stage if lead else None,
-                          eval_fn=eval_stage if lead else None)
+                          checkpoint_fn=save_stage, eval_fn=eval_stage)
             done_epochs += remaining
+            ac = full_policy(trainer.ac)
             if not lead:
                 continue
             for thr_eval in sorted({thr, final_thr}):
                 p_eval = dataclasses.replace(cfg.env, goal_threshold=thr_eval)
-                m = evaluate(trainer.ac, trainer.world, p_eval,
+                m = evaluate(ac, trainer.world, p_eval,
                              generator=torch.Generator(device=dev).manual_seed(done_epochs),
                              **eval_kw)
                 _results_line(results_path,

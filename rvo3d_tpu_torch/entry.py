@@ -28,6 +28,7 @@ root multichip_full.json is the TPU's).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import platform
@@ -163,11 +164,13 @@ def rollout_parting(batch: dict, ref: dict) -> Tuple[Optional[int], bool]:
     return t0, bool(((da == 0) | ((da - 0.01).abs() < 1e-5)).all())
 
 
-def update_on_batch(start_state: dict, cfg: Config, batch: dict, dev: torch.device):
+def update_on_batch(start_state: dict, cfg: Config, batch: dict, dev: torch.device,
+                    opt_states=None):
     """The one-process PPO update of one epoch on a (gathered) rollout batch
-    from `start_state`, with fresh optimizers and the update generator
-    seeded as Trainer seeds it: (the params after it, on the CPU; the
-    update's result)."""
+    from `start_state`, with fresh optimizers (or, given `opt_states`, the
+    two optimizers' whole state dicts loaded: a trainer's later epoch) and
+    the update generator seeded as Trainer seeds it: (the params after it,
+    on the CPU; the update's result)."""
     from rvo3d_tpu_torch.algo.gae import gae_advantages
     from rvo3d_tpu_torch.algo.ppo import AgentData, make_optimizers, ppo_update
 
@@ -175,6 +178,8 @@ def update_on_batch(start_state: dict, cfg: Config, batch: dict, dev: torch.devi
     ac = ActorCritic(cfg.model, device=dev)
     ac.load_state_dict(start_state)
     pi_opt, vf_opt = make_optimizers(tr, ac)
+    for opt, state in zip((pi_opt, vf_opt), opt_states or ()):
+        opt.load_state_dict(copy.deepcopy(state))     # loading shares the tensors
     x = {k: v.to(dev) for k, v in batch.items()}
     adv, ret = gae_advantages(x["rew"], x["val"], x["cut"][:, :, None], tr.gamma, tr.lam)
     upd = ppo_update(ac, tr, pi_opt, vf_opt,
@@ -186,14 +191,15 @@ def update_on_batch(start_state: dict, cfg: Config, batch: dict, dev: torch.devi
 
 
 def tie_rule(batch: dict, params: dict, ref: dict, start_state: dict, cfg: Config,
-             dev: torch.device) -> dict:
+             dev: torch.device, opt_states=None) -> dict:
     """The rule for sharded ranks held against one process (the
     tensor-parallel check): the ranks' rollout `batch` equals the
     one-process batch `ref` up to the first step where an action differs
     (val and logp aside), every difference there is one 0.01 rounding step,
     and the ranks' final `params` equal the one-process update from
-    `start_state` on the ranks' own batch within PARAM_TOL. Raises
-    AssertionError otherwise; returns what was found."""
+    `start_state` (and `opt_states`, see update_on_batch) on the ranks' own
+    batch within PARAM_TOL. Raises AssertionError otherwise; returns what
+    was found."""
     t0, tie = rollout_parting(batch, ref)
     upto = batch["act"].shape[0] if t0 is None else t0
     for k in ref:
@@ -202,7 +208,7 @@ def tie_rule(batch: dict, params: dict, ref: dict, start_state: dict, cfg: Confi
     if not tie:
         raise AssertionError(f"tie rule: the first action difference (step {t0}) is not "
                              f"a 0.01 rounding tie")
-    one, upd = update_on_batch(start_state, cfg, batch, dev)
+    one, upd = update_on_batch(start_state, cfg, batch, dev, opt_states)
     err = max((params[k].double() - v.double()).abs().max().item() for k, v in one.items())
     if not err <= PARAM_TOL:
         raise AssertionError(f"tie rule: the ranks' params differ from the one-process "

@@ -129,8 +129,8 @@ class NeighborEncoder(nn.Module):
             neighbors = neighbors.to(torch.float32)
         nm = neighbors.shape[-2]
         lead = neighbors.shape[:-2]
-        last = torch.zeros(nm, dtype=torch.bool, device=mask.device)
-        last[-1] = True
+        # made on the device: a CUDA graph cannot hold a host-to-device copy
+        last = torch.arange(nm, device=mask.device) == nm - 1
         mask = torch.where(mask.any(-1, keepdim=True), mask, last)
         x = neighbors.reshape(-1, nm, neighbors.shape[-1])     # [B, nm, IN]
         xs = x.transpose(0, 1)                                  # [nm, B, IN] view

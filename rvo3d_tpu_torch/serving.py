@@ -3,12 +3,25 @@
 
 Deterministic mode returns the policy mean; stochastic mode samples with
 the evaluator's std_factor from an explicit torch.Generator.
+
+On a card each batch shape is served by its own CUDA graph (the
+counterpart of the JAX server's jit per shape): the policy's forward is
+captured once over static input buffers (utils/graphs.py), a request is
+copied in, the graph replayed and the action copied out. A stochastic
+request's standard normals are drawn from the caller's generator outside
+the graph, with the call ActorCritic.step makes, so the action equals the
+eager forward's. The graphs read the policy's parameters in place: load
+new weights with `ac.load_state_dict`, which copies into them. Each graph
+keeps its own memory pool (the forward's activations at that batch), so
+at most MAX_GRAPHS batch shapes keep one: the least recently served shape
+loses its graph, and is warmed up and captured anew if it comes back.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -16,7 +29,10 @@ import torch
 
 from rvo3d_tpu_torch.config import ModelConfig
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.utils import graphs
 from rvo3d_tpu_torch.utils.convert import flax_to_state_dict
+
+MAX_GRAPHS = 8      # batch shapes (and modes) that keep a CUDA graph
 
 
 class PolicyServer:
@@ -34,6 +50,7 @@ class PolicyServer:
         self.std_factor = std_factor
         self.deterministic = deterministic
         self.device = next(ac.parameters()).device
+        self._graphs: "OrderedDict[tuple, graphs.GraphedLoop]" = OrderedDict()
 
     @classmethod
     def from_numpy_params(cls, params: Dict[str, Any],
@@ -78,21 +95,49 @@ class PolicyServer:
                                    for k, v in self.ac.state_dict().items()}},
                    path)
 
-    def _t(self, x, dtype=torch.float32):
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+    @torch.no_grad()
+    def policy(self, obs_self, obs_nbr, obs_mask, eps=None) -> torch.Tensor:
+        """The eager forward on device tensors: the mean, or with `eps`
+        (standard normals [..., 3]) the sample mu + std * eps."""
+        if eps is None:
+            return self.ac(obs_self, obs_nbr, obs_mask)[0]
+        return self.ac.step(obs_self, obs_nbr, obs_mask, self.std_factor, eps=eps).action
+
+    def _graphed(self, inputs) -> torch.Tensor:
+        """policy(*inputs) through the graph of this shape and mode (made
+        on first use, the least recently used one dropped past
+        MAX_GRAPHS)."""
+        key = tuple(tuple(x.shape) for x in inputs) + (self.std_factor,)
+        loop = self._graphs.pop(key, None)
+        if loop is None:
+            loop = graphs.GraphedLoop(lambda a, x, t: (self.policy(*x), None), self.device,
+                                      draw=lambda a, request: request)
+            carry = torch.empty(inputs[0].shape[:-1] + (self.ac.act_dim,),
+                                dtype=torch.float32, device=self.device)
+        else:
+            carry = None                       # the action buffer, overwritten
+        self._graphs[key] = loop
+        while len(self._graphs) > MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        return loop(carry, 1, tuple(inputs))[0]
 
     @torch.no_grad()
     def act(self, obs_self, obs_nbr, obs_mask,
             generator: Optional[torch.Generator] = None) -> np.ndarray:
-        obs_self, obs_nbr = self._t(obs_self), self._t(obs_nbr)
-        obs_mask = self._t(obs_mask, torch.bool)
-        if self.deterministic:
-            a = self.ac(obs_self, obs_nbr, obs_mask)[0]
-        else:
+        inputs = [torch.as_tensor(obs_self, dtype=torch.float32),
+                  torch.as_tensor(obs_nbr, dtype=torch.float32),
+                  torch.as_tensor(obs_mask, dtype=torch.bool)]
+        if not self.deterministic:
             if generator is None:
                 raise ValueError("stochastic serving needs a generator")
-            a = self.ac.step(obs_self, obs_nbr, obs_mask, self.std_factor,
-                             generator).action
+            # ActorCritic.step's draw
+            inputs.append(torch.randn(inputs[0].shape[:-1] + (self.ac.act_dim,),
+                                      generator=generator, dtype=torch.float32,
+                                      device=self.device))
+        if graphs.on_card(self.device):
+            a = self._graphed(inputs)
+        else:
+            a = self.policy(*[x.to(self.device) for x in inputs])
         return a.cpu().numpy()
 
     def act_flat(self, obs, generator: Optional[torch.Generator] = None

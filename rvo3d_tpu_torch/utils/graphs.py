@@ -1,0 +1,204 @@
+"""Step loops replayed as CUDA graphs: the port's counterpart of the JAX
+package running each loop of its main path as one compiled program (jit of
+bench.py's scan, make_eval_chunk, the rollout step, the served forward).
+
+A loop's body is one step that reads and writes static tensors: buffers
+allocated once, which the caller fills (observations, pre-drawn random
+numbers) and reads (the carry, the records) between steps. The body holds
+no Python value that depends on the data, so one capture replays every
+step:
+
+  - the first call of `StepGraph.step` runs the body eagerly on a side
+    stream: the warm-up, where the masked-GRU kernel is built with nvcc,
+    its launch geometry is cached and cuBLAS takes its workspace on the
+    stream the capture uses. It is a real step;
+  - the second call captures the body on that stream (torch.cuda.graph)
+    and replays it; every later call replays it.
+
+A replay launches the captured kernels without Python, so
+ops/masked_gru.py's `launches`, which counts its Python launches, would
+miss them: the capture's launches are taken back off the count, and each
+replay adds them again. The count stays the number of kernels the card ran.
+
+GraphedLoop is the loop every user runs (the bench chunk, bench.detail's
+policy chunk, the eval chunk, the rollout, each served batch shape): it
+owns the static carry, copied in before a call's first step and cloned out
+after its last; the static inputs, which its `draw` makes before each
+step outside the graph (random numbers with the same calls the eager loop
+makes, so a replay gives the eager loop's numbers bit for bit and no
+generator is registered with the graph; a served request); and the
+optional [T, ...] records, written at a device step index. A capture that
+fails raises: nothing falls back to eager. The callers run eager loops on
+CPU tensors and never build a StepGraph there.
+"""
+
+from __future__ import annotations
+
+import gc
+from typing import Any, Callable, Optional
+
+import torch
+
+from rvo3d_tpu_torch.ops import masked_gru
+
+WARMUP = 1   # eager steps on the side stream before the capture
+
+
+def on_card(device) -> bool:
+    """Whether a loop on `device` runs as a CUDA graph (a CUDA device) or
+    eagerly (the CPU): the one place the loops' factories ask."""
+    return torch.device(device).type == "cuda"
+
+
+def _side_stream(device: torch.device):
+    return torch.cuda.Stream(device)
+
+
+def _on_stream(stream, body: Callable[[], None]) -> None:
+    """body() eagerly on `stream`, ordered after and before the current
+    stream's work."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        body()
+    current.wait_stream(stream)
+
+
+def _capture(body: Callable[[], None], stream):
+    """body() captured on `stream`. The cyclic garbage collector runs just
+    before and not during the capture: a dropped loop's graph lives in a
+    reference cycle (the loop holds its StepGraph, which holds the loop's
+    body), and freeing it mid-capture releases its memory with calls a
+    capture refuses, which invalidates the capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            body()
+    finally:
+        if enabled:
+            gc.enable()
+    return graph
+
+
+class StepGraph:
+    """body() as one step of a loop on a CUDA device: warmed up, captured
+    once and replayed (the module's docstring). `kernel_launches` is the
+    masked-GRU launches one replay makes, `replays` the replays so far."""
+
+    def __init__(self, body: Callable[[], None], device):
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph runs on a CUDA device, not {dev}; "
+                             "CPU tensors take the eager loop")
+        self.body = body
+        self.device = dev
+        self.stream = _side_stream(dev)
+        self.graph = None
+        self.warmed = 0
+        self.kernel_launches = 0
+        self.replays = 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        if self.warmed < WARMUP:
+            _on_stream(self.stream, self.body)
+            self.warmed += 1
+            return
+        if self.graph is None:
+            before = masked_gru.launches
+            self.graph = _capture(self.body, self.stream)
+            self.kernel_launches = masked_gru.launches - before
+            masked_gru.launches = before     # captured, not run
+        self.graph.replay()
+        self.replays += 1
+        masked_gru.launches += self.kernel_launches
+
+
+def clone_tree(tree: Any) -> Any:
+    """Clones of the tensors of a tree of NamedTuples and tuples; other
+    leaves (None, a generator) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        items = [clone_tree(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def copy_tree_(dst: Any, src: Any) -> None:
+    """Copy every tensor of `src` into the tensor at the same place of
+    `dst`, in place; raises where the shapes or dtypes differ (a static
+    buffer holds one step's values exactly)."""
+    if isinstance(dst, torch.Tensor):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"static buffer {dst.dtype}{tuple(dst.shape)}, "
+                             f"value {src.dtype}{tuple(src.shape)}")
+        dst.copy_(src)
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            copy_tree_(d, s)
+
+
+def static_tree(tree: Any, device) -> Any:
+    """Uninitialised tensors on `device` of the shapes and dtypes of a
+    tree's tensors; other leaves as they are."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device=device)
+    if isinstance(tree, tuple):
+        items = [static_tree(x, device) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+class GraphedLoop:
+    """A loop on a CUDA device whose step is `step(carry, inputs, t) ->
+    (carry, records or None)`, run as one StepGraph over static tensors:
+
+      - the carry is cloned from the first call's and copied in on each
+        later call (carry None goes on from the last call's); each call
+        returns a clone of its final carry;
+      - `draw(carry, ctx)`, when given, makes a step's inputs before the
+        step, outside the graph, from the call's `ctx` (a generator, a
+        request); they are copied into static buffers;
+      - `records(carry)`, when given, allocates [T, ...] buffers once, and
+        each step's records go in at the device step index t (int64 [1],
+        0 at each call's start). A call returns them as they are: they
+        hold until the next call.
+    `step` holds no Python value that depends on the data.
+
+    loop(carry, steps, ctx=None) -> (carry, records or None)."""
+
+    def __init__(self, step: Callable, device, draw: Optional[Callable] = None,
+                 records: Optional[Callable] = None):
+        self.graph = StepGraph(self._body, device)
+        self.step_fn, self.draw, self.make_records = step, draw, records
+        self.carry = self.inputs = self.records = None
+        self.t = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def _body(self) -> None:
+        carry, rec = self.step_fn(self.carry, self.inputs, self.t)
+        if self.records is not None:
+            for buf, x in zip(self.records, rec):
+                buf.index_copy_(0, self.t, x[None])
+        copy_tree_(self.carry, carry)
+        self.t.add_(1)
+
+    def __call__(self, carry: Any, steps: int, ctx: Any = None):
+        if self.carry is None:
+            self.carry = clone_tree(carry)
+            if self.make_records is not None:
+                self.records = self.make_records(carry)
+        elif carry is not None:
+            copy_tree_(self.carry, carry)
+        self.t.zero_()
+        for _ in range(steps):
+            if self.draw is not None:
+                x = self.draw(self.carry, ctx)
+                if self.inputs is None:
+                    self.inputs = static_tree(x, self.t.device)
+                copy_tree_(self.inputs, x)
+            self.graph.step()
+        return clone_tree(self.carry), self.records

@@ -11,7 +11,13 @@ and v-losses at B = 2048 (a rollout step of 128 lanes x 16 drones) and
 16384 (the PPO minibatch) against the same on the CPU; the RVO expert on
 a world32_mix lane world (float64: the same candidate indices as on the
 CPU; float32: at most 1 % flips), and a BC fit step at B = 4096 (the
-kernel forward under autograd) against the same step on the CPU.
+kernel forward under autograd) against the same step on the CPU; and the
+four step loops as CUDA graphs (utils/graphs.py) against their eager
+bodies on the card, bit for bit: the flagship bench chunk (float64 and
+float32), the eval chunk (the kernel's launches counted through the
+replays), two rollout epochs in both action modes, and PolicyServer.act
+at B = 1, 64 and 4096, deterministic and stochastic; and a capture made
+while the garbage collector frees dropped graphs.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
@@ -319,3 +325,123 @@ def test_bc_fit_step_on_card_matches_cpu(cuda):
     loss = bc.fit(ac, tuple(x.to(cuda) for x in data), b, 3, b, 1e-3, None,
                   indices=lambda s: idx)
     assert mg.launches - before == 3 and np.isfinite(loss)
+
+
+# ---- the step loops as CUDA graphs (utils/graphs.py) against their eager
+# bodies on the card: the same kernels in the same order on the same
+# inputs, so every leaf must be equal bit for bit ----
+
+def _equal_trees(a, b, msg=""):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), msg
+    elif isinstance(a, tuple):
+        for name, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+            _equal_trees(x, y, f"{msg}.{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_graphed_bench_chunk_equals_eager(cuda, dtype, monkeypatch):
+    from rvo3d_tpu_torch.bench import core
+    from rvo3d_tpu_torch.bench.flagship import flagship_world
+    from rvo3d_tpu_torch.env.env import reset
+    from rvo3d_tpu_torch.utils import graphs
+
+    made, real = [], graphs.StepGraph
+    monkeypatch.setattr(graphs, "StepGraph",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    wd = flagship_world()
+    world = core.world_spec(wd, cuda, dtype)
+    p = EnvParams(num_drones=wd["drone_num"])
+    s0 = reset(world, p, lead=(256,))
+    chunk = core.make_chunk(world, p)
+    got = chunk(chunk(s0, 20), 20)
+    _equal_trees(got, core.run_chunk(world, s0, p, 40), "state")
+    # one graph; 40 steps: the eager warm-up, then the capture's replay and 38 more
+    assert [g.replays for g in made] == [39]
+
+
+def test_graphed_eval_chunk_equals_eager(cuda):
+    from rvo3d_tpu_torch.algo.evaluator import eval_chunk, init_eval_carry, make_eval_chunk
+    from rvo3d_tpu_torch.worlds import load_world
+
+    wd = load_world("world16_dense")
+    world = wd.spec(device=cuda)
+    p = EnvParams(num_drones=wd.drone_num)
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0), device=cuda)
+    kw = dict(max_ep_len=10, std_factor=1.0, action_mode="direct")
+    c0 = init_eval_carry(world, p, 32)
+    g1 = torch.Generator(device=cuda).manual_seed(1)
+    g2 = torch.Generator(device=cuda).manual_seed(1)
+    chunk = make_eval_chunk(ac, world, p, chunk=16, **kw)
+    before = mg.launches
+    got = chunk(c0, g1)
+    assert mg.launches - before == 16          # one biGRU launch a step, replays included
+    _equal_trees(got, eval_chunk(ac, world, p, c0, g2, 16, **kw), "chunk")
+    assert got[1].ended.any()
+
+
+@pytest.mark.parametrize("mode", ["direct", "increment"])
+def test_graphed_rollout_equals_eager(cuda, mode):
+    from rvo3d_tpu_torch.algo.rollout import init_rollout_carry, make_rollout, rollout_epoch
+    from rvo3d_tpu_torch.config import TrainConfig
+    from rvo3d_tpu_torch.worlds import load_world
+
+    wd = load_world("world16_dense")
+    world = wd.spec(device=cuda)
+    p = EnvParams(num_drones=wd.drone_num, noise=mode == "increment")
+    cfg = TrainConfig(steps_per_epoch=12, num_envs=32, max_ep_len=8, action_mode=mode)
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0), device=cuda)
+    runs = []
+    for graphed in (True, False):
+        carry = init_rollout_carry(world, p, 32, torch.Generator(device=cuda).manual_seed(2))
+        roll = make_rollout(ac, world, p, cfg) if graphed else (
+            lambda c: rollout_epoch(ac, world, p, cfg, c))
+        batches = []
+        for _ in range(2):
+            carry, batch = roll(carry)
+            batches.append(tuple(x.clone() for x in batch))
+        runs.append((carry, batches))
+    (c1, b1), (c2, b2) = runs
+    _equal_trees(c1._replace(generator=None), c2._replace(generator=None), "carry")
+    _equal_trees(tuple(b1), tuple(b2), "batches")
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_graphed_act_equals_eager(cuda, deterministic):
+    from rvo3d_tpu_torch.serving import PolicyServer
+
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0), device=cuda)
+    srv = PolicyServer(ac, deterministic=deterministic, std_factor=0.5)
+    rng = np.random.default_rng(0)
+    for b in (1, 64, 4096, 64):
+        obs = (rng.normal(size=(b, 12)).astype(np.float32),
+               rng.normal(size=(b, 10, 9)).astype(np.float32), rng.random((b, 10)) > 0.5)
+        gen = None if deterministic else torch.Generator(device=cuda).manual_seed(b)
+        got = srv.act(*obs, generator=gen)
+        x = [torch.as_tensor(o, device=cuda) for o in obs]
+        eps = None if deterministic else torch.randn(
+            b, 3, generator=torch.Generator(device=cuda).manual_seed(b), device=cuda)
+        np.testing.assert_array_equal(got, srv.policy(*x, eps).cpu().numpy())
+    assert len(srv._graphs) == 3
+
+
+def test_a_capture_survives_the_collector_freeing_dropped_graphs(cuda):
+    import gc
+
+    from rvo3d_tpu_torch.utils import graphs
+
+    x = torch.arange(8.0, device=cuda)
+    loop = graphs.GraphedLoop(lambda c, i, t: (c * 2, None), cuda)
+    old = gc.get_threshold()
+    gc.disable()
+    try:
+        for _ in range(4):        # captured, then dropped in reference cycles
+            graphs.GraphedLoop(lambda c, i, t: (c + 1, None), cuda)(x, 3)
+        got, _ = loop(x, 1)       # the eager warm-up; nothing collected yet
+        gc.set_threshold(1, 1, 1)
+        gc.enable()               # the collector now runs at almost every allocation
+        got, _ = loop(got, 3)     # captured and replayed
+    finally:
+        gc.set_threshold(*old)
+        gc.enable()
+    assert torch.equal(got, x * 16)

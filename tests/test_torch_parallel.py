@@ -17,6 +17,16 @@ RVO3D_* variables, a free local port, each process with its own timeout):
     (atol 1e-3) of tests/test_sharding.py;
   - `cli train --mesh_data 2`: rank 0 alone writes the run directory, each
     line and checkpoint once;
+  - `cli train --curriculum 1.2:1,0.4:rest --mesh_model 2` (one epoch a
+    stage, tensor-parallel over the two ranks) against the same curriculum
+    in one process under entry.tie_rule: the first epoch's rollout equal up
+    to a 0.01 rounding tie and its params equal to the one-process update
+    on the ranks' batch within 1e-5; stage 2 on its own: its start equal
+    to stage 1's end, its epoch under the tie rule against one process
+    started from the ranks' stage-2 params and Adam state; while the
+    rollouts have not parted, every later epoch's batch equal to the
+    one-process curriculum's too (values and logp aside) and the final
+    params within 1e-5; rank 0 writes each stage's lines once;
   - make_mesh in one process, and its refusals (a model axis of 2 needs
     processes; tensor parallelism itself is tests/test_torch_tensor_parallel.py);
   - the backend rule (gloo for a CPU run, whatever cards the host has;
@@ -35,7 +45,8 @@ import pytest
 import torch
 
 from rvo3d_tpu_torch.parallel import make_mesh, multihost
-from torch_parallel_worker import CASES, epoch_case
+from torch_parallel_worker import (CASES, curriculum_argv, curriculum_recorded, epoch_case,
+                                   stage_epoch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
@@ -81,6 +92,16 @@ def one_process():
     torch.set_num_threads(1)       # as the workers run
     try:
         return {name: epoch_case(dtype) for name, dtype in CASES.items()}
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def curriculum_one(tmp_path_factory):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)       # as the workers run
+    try:
+        return curriculum_recorded(curriculum_argv(str(tmp_path_factory.mktemp("curr"))))
     finally:
         torch.set_num_threads(n)
 
@@ -176,3 +197,57 @@ def test_local_rank_counts_the_ranks_on_this_host(monkeypatch):
     monkeypatch.setenv("RVO3D_LOCAL_PROCESSES", "2")     # 2 hosts x 2 ranks
     assert (multihost.local_processes(), multihost.local_rank()) == (2, 1)
     assert multihost.rank_device("cpu") == torch.device("cpu")   # no process group
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_curriculum_over_a_model_mesh_holds_to_one_process(ranks, curriculum_one, rank):
+    from rvo3d_tpu_torch import entry
+    from rvo3d_tpu_torch.config import from_dict
+
+    out, _ = ranks
+    got, ref = load(out, "curriculum", rank), curriculum_one
+    assert got["rc"] == 0 and ref["rc"] == 0
+    assert [e["goal_threshold"] for e in got["epochs"]] == [1.2, 0.4]
+    assert [e["goal_threshold"] for e in ref["epochs"]] == [1.2, 0.4]
+    run = os.path.join(out, "curriculum")
+    cfg = from_dict(json.load(open(os.path.join(run, "config.json"))))
+    first, one = got["epochs"][0], ref["epochs"][0]
+    for k, v in one["start"].items():
+        assert torch.equal(first["start"][k], v), k
+    held = entry.tie_rule(first["batch"], first["params"], one["batch"], first["start"],
+                          cfg, torch.device("cpu"))
+    # stage 2 on its own, whether or not stage 1's rollouts parted: its
+    # trainer (sharded, then loaded from stage 1's shards) starts from
+    # stage 1's final params exactly, and its epoch holds under the tie rule
+    # to one process started from the ranks' stage-2 params and Adam state
+    second = got["epochs"][1]
+    for k, v in first["params"].items():
+        assert torch.equal(second["start"][k], v), k
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)       # as the workers run
+    try:
+        own = stage_epoch(run, 0.4, second["start"], second["start_opt"])
+    finally:
+        torch.set_num_threads(n)
+    entry.tie_rule(second["batch"], second["params"], own, second["start"], cfg,
+                   torch.device("cpu"), opt_states=second["start_opt"])
+    if held["first_action_difference_step"] is None:
+        for e, (g, r) in enumerate(zip(got["epochs"][1:], ref["epochs"][1:]), 1):
+            t0, tie = entry.rollout_parting(g["batch"], r["batch"])
+            upto = g["batch"]["act"].shape[0] if t0 is None else t0
+            for k in r["batch"]:
+                if k not in ("val", "logp"):
+                    assert torch.equal(g["batch"][k][:upto], r["batch"][k][:upto]), (e, k)
+            assert tie, f"epoch {e}: the rollouts part at step {t0}, not at a tie"
+            if t0 is not None:
+                break
+        else:
+            for k, v in ref["epochs"][-1]["params"].items():
+                torch.testing.assert_close(got["epochs"][-1]["params"][k], v,
+                                           atol=entry.PARAM_TOL, rtol=0)
+    lines = [json.loads(ln) for ln in open(os.path.join(run, "train.jsonl")) if ln.strip()]
+    assert [(ln["epoch"], ln["goal_threshold"]) for ln in lines] == [(0, 1.2), (1, 0.4)]
+    assert sorted(os.listdir(os.path.join(run, "ckpt"))) == ["0", "1", "config.json"]
+    results = open(os.path.join(run, "results.txt")).read()
+    # each stage ends with evaluations at its threshold and the final one
+    assert results.count("stage thr=1.2 done") == 2 and results.count("stage thr=0.4 done") == 1

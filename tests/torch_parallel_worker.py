@@ -8,13 +8,17 @@ starts two, with the RVO3D_* variables, on the CPU over gloo):
   - one Trainer epoch over a 2-rank mesh in float64 and in float32
     (`epoch_case`), its gathered rollout batch, metrics and final
     parameters written to <out_dir>/<case>_rank<r>.pt;
-  - `cli train --mesh_data 2` into <out_dir>/cli (rank 0 writes it).
+  - `cli train --mesh_data 2` into <out_dir>/cli (rank 0 writes it);
+  - `cli train --curriculum ... --mesh_model 2` into <out_dir>/curriculum,
+    every epoch recorded (`curriculum_recorded`) to
+    <out_dir>/curriculum_rank<r>.pt.
 
 Prints PARALLEL_OK rank=<r> at the end.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 
@@ -61,6 +65,81 @@ def epoch_case(dtype: torch.dtype, mesh=None) -> dict:
     return {"batch": seen["batch"], "metrics": metrics,
             "params": {k: v.clone() for k, v in trainer.ac.state_dict().items()},
             "carry_lanes": int(trainer.carry.ep_len.shape[0])}
+
+
+def curriculum_argv(run_dir: str) -> list:
+    """A two-stage goal-threshold curriculum at the CLI's tiny sizes: one
+    epoch at 1.2, one at 0.4."""
+    return ["train", "--device", "cpu", "--world", "gen_demo", "--num_envs", "4",
+            "--steps_per_epoch", "8", "--train_epoch", "2", "--rnn_hidden_dim", "16",
+            "--train_pi_iters", "2", "--train_v_iters", "2", "--save_freq", "1",
+            "--eval_episodes", "4", "--batched_update", "--action_mode", "direct",
+            "--curriculum", "1.2:1,0.4:rest", "--quiet", "--run_dir", run_dir]
+
+
+def curriculum_recorded(argv: list) -> dict:
+    """cli.main(argv) with every Trainer epoch recorded: the stage's goal
+    threshold, the whole parameters before and after it and both
+    optimizers' whole states before it (gathered under tensor parallelism),
+    and the rollout batch its update saw."""
+    from rvo3d_tpu_torch import cli
+    from rvo3d_tpu_torch.algo import trainer as trainer_mod
+    from rvo3d_tpu_torch.parallel.tensor_parallel import (full_optimizer_state_dict,
+                                                          full_state_dict)
+
+    real = trainer_mod.Trainer.run_epoch
+    epochs = []
+
+    def whole(ac):
+        return {k: v.clone() for k, v in full_state_dict(ac).items()}
+
+    def run_epoch(self):
+        rec = {"goal_threshold": self.cfg.env.goal_threshold, "start": whole(self.ac),
+               "start_opt": [copy.deepcopy(full_optimizer_state_dict(o))
+                             for o in (self.pi_opt, self.vf_opt)]}
+
+        def hook(name, data):
+            if name == "gae":
+                rec["batch"] = {k: v.clone() for k, v in data._asdict().items()}
+        self.phase_hook = hook
+        metrics = real(self)
+        rec["params"] = whole(self.ac)
+        epochs.append(rec)
+        return metrics
+    trainer_mod.Trainer.run_epoch = run_epoch
+    try:
+        rc = cli.main(argv)
+    finally:
+        trainer_mod.Trainer.run_epoch = real
+    return {"rc": rc, "epochs": epochs}
+
+
+def stage_epoch(run_dir: str, goal_threshold: float, start: dict, start_opt) -> dict:
+    """The rollout batch of a curriculum stage's first epoch in one process,
+    from a given start: the stage's Trainer as `cli train` builds it (the
+    run's config at the stage's threshold, a fresh carry from the seed),
+    with the whole parameters `start` and optimizer states `start_opt`
+    loaded."""
+    import dataclasses
+    import json
+
+    from rvo3d_tpu_torch.algo.trainer import Trainer
+    from rvo3d_tpu_torch.config import from_dict
+    from rvo3d_tpu_torch.worlds import load_world
+
+    cfg = from_dict(json.load(open(os.path.join(run_dir, "config.json"))))
+    cfg = cfg.replace(env=dataclasses.replace(cfg.env, goal_threshold=goal_threshold))
+    trainer = Trainer(cfg, load_world(cfg.world).spec(device="cpu"), device="cpu")
+    for dst, src in zip(trainer.ppo_state, (start, *start_opt)):
+        dst.load_state_dict(copy.deepcopy(src))       # loading shares the tensors
+    seen = {}
+
+    def hook(name, data):
+        if name == "gae":
+            seen["batch"] = {k: v.clone() for k, v in data._asdict().items()}
+    trainer.phase_hook = hook
+    trainer.run_epoch()
+    return seen["batch"]
 
 
 def units(mesh) -> None:
@@ -129,6 +208,9 @@ def main() -> int:
             "--eval_episodes", "4", "--batched_update", "--action_mode", "direct",
             "--mesh_data", "2", "--quiet", "--run_dir", os.path.join(out, "cli")]
     assert cli.main(argv) == 0
+    curr = curriculum_recorded(curriculum_argv(os.path.join(out, "curriculum"))
+                               + ["--mesh_model", "2"])
+    torch.save(curr, os.path.join(out, f"curriculum_rank{mesh.rank}.pt"))
     print(f"PARALLEL_OK rank={mesh.rank} backend={torch.distributed.get_backend()}",
           flush=True)
     return 0
