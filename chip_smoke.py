@@ -128,6 +128,19 @@ stochastic (p50 ms). Before those, each graphed loop that flies the policy
 and 4096) runs 3 steps in a loop of its own whose graph also copies the
 kernel's inputs and output, and the last replay's output is held to the
 plain version on its inputs (`kernel_at_replayed_launch`, atol 1e-4).
+Then the learner's device programs: since then GAE, the PPO update and the
+BC fit of every training phase above (`train`, `bc_ppo_recipe`, ...) run
+as CUDA graph replays too (algo/ppo.PPOUpdate, algo/bc.fit; the
+tensor-parallel update stays eager), and `learner_graphs` (stated at
+30-60 s before it was added) holds them against their bodies called
+eagerly in this process, every leaf bit for bit: the w16_r4 product's
+update on one rollout batch at full width (128 x 16, T = 300, 20 pi / 50
+v iterations, minibatch 16384; params, both Adams' states, the batch with
+its GAE, the metrics), the same with target_kl set so that the KL stop
+fires midway, and 200 BC fit steps at B = 4096 on a world32_mix demo set;
+it prints ms per update iteration and per BC step, graphed and eager, the
+eager ones split into the kernel forward, the rest of the forward, the
+backward, the clip and Adam, and the device's idle share over 5 of each.
 Each of these phases that launches the masked GRU keeps the kernel's
 inputs at its first launch with each row count and holds the kernel to its
 plain version on them (`kernel_at_path_rows`, atol 1e-4; a graphed loop's
@@ -492,6 +505,24 @@ def lane_spread(state):
         else:
             differ += int((x != x[:1]).sum().item())
     return {"max_abs": worst, "integer_and_flag_entries": differ}
+
+
+def device_us(e):
+    """A profiler event's own device time, in us."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def cuda_ops(prof):
+    """The profile's device ops with device time, the most first; the
+    device spans of record_function ranges (an optimizer's step) are not
+    ops and would count their kernels twice."""
+    import torch
+
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+           and not getattr(e, "is_user_annotation", False)]
+    return sorted(ops, key=device_us, reverse=True)
 
 
 def tree_diff(a, b, path=""):
@@ -1911,14 +1942,6 @@ def main(argv=None) -> int:
         at_rows = kernel_at_kept_rows(
             mg, keep, want=(cfg_p.train.num_envs * cfg_p.env.num_drones,))
 
-        def device_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0.0)
-
-        def cuda_ops(p):
-            ops = [e for e in p.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
-            return sorted(ops, key=device_us, reverse=True)
         ops = cuda_ops(prof)
         busy_ms = sum(device_us(e) for e in ops) / 1e3
         # the eager loop over the same steps, for its idle share
@@ -2146,6 +2169,269 @@ def main(argv=None) -> int:
         out["atol"] = ATOL
         return out
     run_phase("graphs", graphs_held)
+
+    # ---- the learner's device programs (algo/ppo.PPOUpdate, algo/bc.fit)
+    # as CUDA graphs against their bodies called eagerly, at the main path's
+    # sizes: every leaf equal bit for bit; times, splits and idle shares ----
+    def learner_graphs():
+        """The w16_r4 product's update on one rollout batch at full width
+        (128 x 16, T = 300, 20 pi / 50 v iterations, minibatch 16384), GAE
+        included, graphed against eager from the same start (params, both
+        Adams' states, the batch with its adv and ret, the metrics); the
+        same with target_kl set to 0.9 of the kl an eager update reaches
+        after 10 iterations, so that the stop fires midway; 200 BC fit
+        steps at B = 4096 on a world32_mix demo set (the RVO expert, 32
+        lanes x 32 drones x 25 steps) from a biGRU-256 made from the seed,
+        graphed against eager. Then ms per pi and v iteration and per BC
+        step, graphed and eager, the eager iteration and step split into
+        the kernel forward, the rest of the forward, the backward, the clip
+        and Adam, and the device's idle share over 5 iterations or steps of
+        each (utils/profiler.trace; the traces are not kept)."""
+        import tempfile
+
+        from rvo3d_tpu_torch.algo import bc as bc_mod
+        from rvo3d_tpu_torch.algo.rollout import RolloutBatch, make_rollout
+        from rvo3d_tpu_torch.utils import graphs as graphs_mod
+        from rvo3d_tpu_torch.utils.profiler import trace
+
+        problems, out = [], {"card": smi}
+        tr = run_cfg.train
+        mg.launches = 0
+        trainer = Trainer(run_cfg, run_world, device=dev)
+        trainer.ac.load_state_dict(product["state_dict"])
+        _, rb = make_rollout(trainer.ac, run_world, run_cfg.env, tr)(trainer.carry)
+        batch = RolloutBatch(*[x.clone() for x in rb])
+        del trainer, rb
+        launches = {"rollout": mg.launches}
+
+        @contextlib.contextmanager
+        def graphed_as(graphed):
+            real = graphs_mod.on_card
+            graphs_mod.on_card = lambda device: graphed
+            try:
+                yield
+            finally:
+                graphs_mod.on_card = real
+
+        def update_run(cfg, graphed):
+            """One update from the product's params with fresh Adams on
+            `batch`, GAE included: (learner, metrics, seconds, launches)."""
+            with graphed_as(graphed):
+                ac = ActorCritic(run_cfg.model, device=dev)
+                ac.load_state_dict(product["state_dict"])
+                learner = ppo.PPOUpdate(ac, cfg, *ppo.make_optimizers(cfg, ac))
+                torch.cuda.synchronize()
+                l0, t0 = mg.launches, time.perf_counter()
+                learner.prepare(batch)
+                m = learner.update(torch.Generator().manual_seed(cfg.seed))
+                torch.cuda.synchronize()
+                return learner, m, time.perf_counter() - t0, mg.launches - l0
+
+        def learner_tree(lr, m):
+            adam = tuple(tuple(opt.state[p][k] for k in ("step", "exp_avg", "exp_avg_sq"))
+                         for opt in (lr.pi_opt, lr.vf_opt)
+                         for grp in opt.param_groups for p in grp["params"]
+                         if p in opt.state)
+            return (tuple(lr.ac.state_dict().values()), adam, lr.data, m)
+
+        def held(name, a, b):
+            err, differ = tree_diff(a, b)
+            if err != 0.0 or differ:
+                problems.append(f"{name}: max |graph - eager| {err}, differing {differ[:5]}")
+            return {"max_abs_diff": err, "differing_leaves": len(differ)}
+
+        def summary(m):
+            return {k: getattr(m, k).tolist() for k in ("pi_iters", "kl", "pi_loss", "v_loss")}
+
+        # the update, as w16_r4 runs it, then with the stop midway
+        probe = dataclasses.replace(tr, train_pi_iters=tr.train_pi_iters // 2,
+                                    target_kl=1e9, train_v_iters=0)
+        _, probed, _, launches["update_kl_probe"] = update_run(probe, False)
+        kl_half = float(probed.kl[0])
+        mid = dataclasses.replace(tr, target_kl=0.9 * kl_half)
+        updates, learners = {}, {}
+        for name, cfg in (("w16_r4", tr), ("stop_midway", mid)):
+            g = update_run(cfg, True)
+            e = update_run(cfg, False)
+            updates[name] = {**held(f"update {name}", learner_tree(g[0], g[1]),
+                                    learner_tree(e[0], e[1])),
+                             "target_kl": cfg.target_kl, **summary(g[1]),
+                             "seconds_graphed_with_capture": g[2], "seconds_eager": e[2],
+                             "launches_graphed": g[3], "launches_eager": e[3]}
+            launches[f"update_{name}"] = g[3] + e[3]
+            iters = g[1].pi_iters.tolist()
+            if name == "stop_midway" and not all(0 < i < cfg.train_pi_iters for i in iters):
+                problems.append(f"the stop did not fire midway: pi_iters {iters}")
+            learners[name] = (g[0], e[0])
+        del learners["stop_midway"]
+        g_l, e_l = learners["w16_r4"]
+        l0 = mg.launches
+        for _ in range(2):     # GAE's step is captured in the second call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g_l.prepare(batch)
+            g_l.update(torch.Generator().manual_seed(tr.seed))
+            torch.cuda.synchronize()
+        updates["w16_r4"]["seconds_graphed_replays"] = time.perf_counter() - t0
+        updates["w16_r4"]["batch_rows"] = int(batch.act[..., 0].numel())
+        launches["update_w16_r4_replayed"] = mg.launches - l0
+        out["update"] = updates
+
+        # per iteration: graphed replays and eager bodies (counters reset:
+        # the windows are read at the iteration index); the timing's
+        # launches are not the path's
+        l0 = mg.launches
+
+        def reset(lr):
+            for t in (lr.i_pi, lr.i_v, lr.stopped):
+                t.zero_()
+
+        def timed(lr, fn, iters):
+            reset(lr)
+            return cuda_ms(fn, iters, warmup=1)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            def idle(lr, fn, name, n=5):
+                """Device busy time and idle share of n calls of fn."""
+                reset(lr)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+                reset(lr)
+                with trace(os.path.join(tmp, name)) as prof:
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                ops = cuda_ops(prof)
+                busy = sum(device_us(e) for e in ops) / 1e3
+                return {"calls": n, "wall_ms": wall, "device_busy_ms": busy,
+                        "device_idle_share": 1.0 - busy / wall,
+                        "masked_gru_device_ms": sum(device_us(e) for e in ops
+                                                    if "masked_gru" in e.key) / 1e3,
+                        "kernels_per_call": sum(e.count for e in ops) / n}
+
+            it = {"pi_graphed_ms": timed(g_l, g_l._pi_step, 10),
+                  "v_graphed_ms": timed(g_l, g_l._v_step, 10),
+                  "pi_eager_ms": timed(e_l, e_l._pi_body, 5),
+                  "v_eager_ms": timed(e_l, e_l._v_body, 5)}
+            reset(e_l)
+            win = e_l._window(e_l.pi_off, e_l.i_pi)
+            ac = e_l.ac
+            pi_params = [p for grp in e_l.pi_opt.param_groups for p in grp["params"]]
+
+            def pi_fwd():
+                return ppo.pi_loss_fn(ac, win, tr.clip_ratio, tr.adv_norm, tr.ent_coef)[0]
+
+            def pi_fwd_bwd():
+                ac.zero_grad(set_to_none=True)
+                pi_fwd().backward()
+            xs, ms = encoder_view(win.obs_nbr, win.obs_mask)
+            with torch.no_grad():
+                fw, bw = ac.encoder.fwd.weights(), ac.encoder.bwd.weights()
+                kernel = cuda_ms(lambda: mg.masked_bigru_scan_cuda(xs, ms, fw, bw), 10)
+                fwd = cuda_ms(pi_fwd, 5)
+            fwd_bwd = cuda_ms(pi_fwd_bwd, 5)
+            clip = cuda_ms(lambda: ppo.clip_by_global_norm_(pi_params, tr.grad_clip_norm), 5)
+            adam = cuda_ms(lambda: e_l.pi_opt.step(keep=e_l.stopped.logical_not()), 5)
+            ac.zero_grad(set_to_none=True)
+            it["pi_eager_split_ms"] = {
+                "kernel_forward": kernel, "forward_rest": fwd - kernel,
+                "backward": fwd_bwd - fwd, "clip": clip, "adam": adam,
+                "iteration": it["pi_eager_ms"], "window_rows": int(xs.shape[1])}
+            it["pi_graphed_profile"] = idle(g_l, g_l._pi_step, "pi_graphed")
+            it["pi_eager_profile"] = idle(e_l, e_l._pi_body, "pi_eager")
+            out["update_iteration"] = it
+            del learners, g_l, e_l, win, xs, ms
+            mg.launches = l0
+
+            # the BC fit: 200 steps at B = 4096, graphed and eager
+            p32 = dataclasses.replace(w32_cfg.env, noise=False)
+            data = bc_mod.collect_demos(pop_spec(W32_POPULATIONS[0], dev), p32, 32, 25,
+                                        torch.Generator(device=dev).manual_seed(SEED),
+                                        expert="rvo", action_mode=w32_cfg.train.action_mode,
+                                        explore_std=0.1, expert_margin=0.3,
+                                        expert_slowdown=True)
+            n = data[0].shape[0]
+            launches["bc_demos"] = mg.launches - l0
+            steps, rows, lr_bc = 200, 4096, 1e-3
+
+            def bc_run(graphed, profile_dir=None):
+                """200 fit steps from the seed's policy: (policy, loss, ms a
+                step past step 20, launches, profile of the last 5 steps)."""
+                with graphed_as(graphed), contextlib.ExitStack() as stack:
+                    ac = ActorCritic(w32_cfg.model,
+                                     generator=torch.Generator().manual_seed(SEED), device=dev)
+                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    prof = {}
+
+                    def indices(s):     # fit's own draw, with marks
+                        if s == 20:
+                            ev[0].record()
+                        if profile_dir and s == steps - 5:
+                            torch.cuda.synchronize()
+                            prof["t0"] = time.perf_counter()
+                            prof["p"] = stack.enter_context(trace(profile_dir))
+                        return torch.randint(0, n, (rows,), generator=gen, device=dev)
+                    torch.cuda.synchronize()
+                    l0 = mg.launches
+                    loss = bc_mod.fit_steps(ac, data, n, steps, rows, lr_bc, None, 1.0,
+                                            indices)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    wall = 1e3 * (time.perf_counter() - prof.get("t0", 0.0))
+                return ac, loss, ev[0].elapsed_time(ev[1]) / (steps - 20), \
+                    mg.launches - l0, prof.get("p"), wall
+
+            bc_out, bc_acs = {}, {}
+            for graphed in (True, False):
+                tag = "graphed" if graphed else "eager"
+                ac, loss, ms_step, nl, prof, wall = bc_run(graphed, os.path.join(tmp, tag))
+                ops = cuda_ops(prof)
+                busy = sum(device_us(e) for e in ops) / 1e3
+                bc_acs[tag] = (ac, loss)
+                bc_out[tag] = {"loss": float(loss), "ms_per_step": ms_step, "launches": nl,
+                               "profile_last_5_steps": {
+                                   "wall_ms_profiled": wall, "device_busy_ms": busy,
+                                   "device_idle_share": 1.0 - busy / (5 * ms_step),
+                                   "device_idle_share_profiled": 1.0 - busy / wall,
+                                   "kernels_per_step": sum(e.count for e in ops) / 5}}
+                launches[f"bc_fit_{tag}"] = nl
+            bc_out.update(held("bc fit", (tuple(bc_acs["graphed"][0].state_dict().values()),
+                                          bc_acs["graphed"][1]),
+                               (tuple(bc_acs["eager"][0].state_dict().values()),
+                                bc_acs["eager"][1])))
+        # the eager BC step split at B = 4096
+        l0 = mg.launches
+        ac = bc_acs["eager"][0]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        idx = torch.randint(0, n, (rows,), generator=gen, device=dev)
+        opt = bc_mod.Adam([q for q in ac.parameters() if q.requires_grad], lr=lr_bc)
+
+        def bc_fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            bc_mod.bc_loss(ac, data, idx).backward()
+        xs, ms = encoder_view(data[1][idx], data[2][idx])
+        with torch.no_grad():
+            fw, bw = ac.encoder.fwd.weights(), ac.encoder.bwd.weights()
+            kernel = cuda_ms(lambda: mg.masked_bigru_scan_cuda(xs, ms, fw, bw), 10)
+            fwd = cuda_ms(lambda: bc_mod.bc_loss(ac, data, idx), 5)
+        fwd_bwd = cuda_ms(bc_fwd_bwd, 5)
+        adam = cuda_ms(opt.step, 5)
+        bc_out["eager_split_ms"] = {"kernel_forward": kernel, "forward_rest": fwd - kernel,
+                                    "backward": fwd_bwd - fwd, "adam": adam,
+                                    "rows": rows, "set_rows": n}
+        mg.launches = l0                       # the timing's launches are not the path's
+        out["bc_fit"] = bc_out
+        out["gru_launches"] = launches
+        launches_by_phase["learner_graphs"] = mg.launches
+        if problems:
+            raise AssertionError(f"{problems}: {out}")
+        return out
+    run_phase("learner_graphs", learner_graphs)
 
     def worldgen_parity():
         """`cli worldgen` of a 16-drone world at world16_dense's map size,

@@ -9,6 +9,14 @@ action space), and regress the policy mean onto it. DAgger rounds roll the
 current clone instead, relabel its states with the expert, aggregate the
 dataset and refit. Everything runs on the policy's device; the random
 draws come from an explicit torch.Generator.
+
+A fit's step reads static tensors only: the rows it trains on are drawn
+before it, outside it, into one index buffer, with the same call on the
+same generator as an eager loop would make. On a card the step (forward
+through the masked-GRU kernel, the plain-scan backward, algo/adam.py's
+step) is captured once per fit as a CUDA graph and replayed, as the JAX
+fit runs its steps as one jitted scan (utils/graphs.py); the CPU calls it
+as it is. The loss is read once, after the last step.
 """
 
 from __future__ import annotations
@@ -18,11 +26,13 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from rvo3d_tpu_torch.algo.adam import Adam
 from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.env import rvo_policy
 from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
 from rvo3d_tpu_torch.env.state import WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.utils import graphs
 from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
 
 # randn(kind, shape) -> standard normals for the DART exploration noise
@@ -133,22 +143,38 @@ def fit(ac: ActorCritic, data, n_valid: int, steps: int, batch: int, lr: float,
         indices: Optional[Callable[[int], torch.Tensor]] = None) -> float:
     """`steps` Adam steps (fresh moments: optax.adam's defaults) on
     minibatches of `batch` rows drawn uniformly from the first n_valid;
-    indices(step) replaces the draws. Returns the last step's loss."""
-    params = [q for q in ac.parameters() if q.requires_grad]
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    indices(step) replaces the draws. On a card the step is one CUDA graph,
+    captured for this fit (the module's docstring). Returns the last step's
+    loss."""
+    return float(fit_steps(ac, data, n_valid, steps, batch, lr, generator,
+                           conflict_weight, indices))
+
+
+def fit_steps(ac: ActorCritic, data, n_valid: int, steps: int, batch: int, lr: float,
+              generator: Optional[torch.Generator], conflict_weight: float = 1.0,
+              indices: Optional[Callable[[int], torch.Tensor]] = None) -> torch.Tensor:
+    """fit's steps, with no host read: the last step's loss as a tensor."""
+    opt = Adam([q for q in ac.parameters() if q.requires_grad], lr=lr)
     dev = data[0].device
-    loss = torch.zeros((), device=dev)
+    idx = torch.zeros(batch, dtype=torch.int64, device=dev)
+    loss = torch.zeros((), dtype=torch.promote_types(torch.float32, data[3].dtype),
+                       device=dev)
+
+    def body():
+        with torch.enable_grad():
+            opt.zero_grad(set_to_none=True)
+            out = bc_loss(ac, data, idx, conflict_weight)
+            out.backward()
+        with torch.no_grad():
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            loss.copy_(out)
+    run = graphs.StepGraph(body, dev).step if graphs.on_card(dev) else body
     for s in range(steps):
-        if indices is not None:
-            idx = indices(s).to(dev)
-        else:
-            idx = torch.randint(0, n_valid, (batch,), generator=generator,
-                                device=generator.device).to(dev)
-        opt.zero_grad(set_to_none=True)
-        loss = bc_loss(ac, data, idx, conflict_weight)
-        loss.backward()
-        opt.step()
-    return float(loss.detach())
+        idx.copy_(indices(s) if indices is not None else torch.randint(
+            0, n_valid, (batch,), generator=generator, device=generator.device))
+        run()
+    return loss
 
 
 def bc_pretrain(ac: ActorCritic, world: Union[WorldSpec, Sequence[WorldSpec]],

@@ -3,15 +3,19 @@
 (counterpart of rvo3d_tpu/algo/trainer.py; reference train_process.py and
 multi_ppo.training_loop).
 
-On a card the rollout replays one step captured as a CUDA graph
-(rollout.make_rollout: one capture per trainer, valid across epochs, since
-the parameters are updated and restored in place; a curriculum stage
-builds a new trainer and with it a new capture); GAE and the PPO update
-run eagerly, as the whole epoch does on the CPU and under tensor
-parallelism. The parameters and the optimizer states are updated in place,
-so the rollback to the last finite epoch keeps cloned snapshots of the
-parameters, both optimizer states and the env carry (the JAX trainer's
-snapshot is free: its arrays are immutable).
+On a card the epoch runs as CUDA graph replays, as the JAX trainer runs
+it as one compiled program: the rollout replays one captured step T times
+(rollout.make_rollout), GAE one captured step into the update's static
+batch, and the update its captured policy and value iterations
+(ppo.PPOUpdate); no host read happens before the epoch's end. The
+captures are made once per trainer and hold across epochs, since the
+parameters and both Adam states are updated and restored in place (a
+curriculum stage builds a new trainer and with it new captures). The CPU
+runs the same steps eagerly, and so does a tensor-parallel trainer on a
+card (its gloo all_reduces cannot be captured). The rollback to the last
+finite epoch keeps cloned snapshots of the parameters, both optimizer
+states and the env carry (the JAX trainer's snapshot is free: its arrays
+are immutable).
 
 Data-parallel over env lanes (`mesh`, parallel/mesh.py): each rank steps
 its block of the lanes (and of the lane world), drawing every random
@@ -32,9 +36,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from rvo3d_tpu_torch.algo.gae import gae_advantages
-from rvo3d_tpu_torch.algo.ppo import (AgentData, PPOState, UpdateMetrics,
-                                      make_optimizers, ppo_update)
+from rvo3d_tpu_torch.algo.ppo import PPOState, PPOUpdate, UpdateMetrics, make_optimizers
 from rvo3d_tpu_torch.algo.rollout import (EpisodeStats, RolloutCarry,
                                           init_rollout_carry, make_rollout)
 from rvo3d_tpu_torch.config import Config
@@ -67,13 +69,14 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
                      mesh=None):
     """train_epoch(carry, generator, perm=None, offsets=None, on_phase=None)
     -> EpochOutput. `generator` (CPU) draws the agent order and minibatch
-    offsets; `perm`/`offsets` inject them (see ppo_update). lane_worlds: an
+    offsets; `perm`/`offsets` inject them (see PPOUpdate.update). lane_worlds: an
     optional lane world (worlds/multi.py) that the rollout steps. mesh: a
     parallel.Mesh; the carry and lane_worlds then hold this rank's lanes,
     and the batch and the stats are gathered before GAE."""
     env_p, tr = cfg.env, cfg.train
     state = PPOState(ac, pi_opt, vf_opt)
     rollout = make_rollout(ac, world, env_p, tr, lane_worlds=lane_worlds, mesh=mesh)
+    learner = PPOUpdate(ac, tr, pi_opt, vf_opt)
 
     def train_epoch(carry: RolloutCarry, generator: torch.Generator,
                     perm=None, offsets=None,
@@ -86,13 +89,9 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
             batch = type(batch)(*[gather_lanes(x, mesh, axis=1) for x in batch])
             stats = _reduce_stats(stats, mesh)
         hook("gae", batch)
-        adv, ret = gae_advantages(batch.rew, batch.val, batch.cut[:, :, None],
-                                  tr.gamma, tr.lam)
-        data = AgentData(obs_self=batch.obs_self, obs_nbr=batch.obs_nbr,
-                         obs_mask=batch.obs_mask, act=batch.act, adv=adv,
-                         ret=ret, logp=batch.logp, val=batch.val)
+        data = learner.prepare(batch)
         hook("update", data)
-        upd = ppo_update(ac, tr, pi_opt, vf_opt, data, generator, perm, offsets)
+        upd = learner.update(generator, perm, offsets)
         hook("end", None)
         carry = carry._replace(stats=EpisodeStats.zero(
             stats.count.shape[0], stats.count.device, stats.ret_sum.dtype))

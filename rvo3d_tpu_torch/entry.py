@@ -171,8 +171,8 @@ def update_on_batch(start_state: dict, cfg: Config, batch: dict, dev: torch.devi
     two optimizers' whole state dicts loaded: a trainer's later epoch) and
     the update generator seeded as Trainer seeds it: (the params after it,
     on the CPU; the update's result)."""
-    from rvo3d_tpu_torch.algo.gae import gae_advantages
-    from rvo3d_tpu_torch.algo.ppo import AgentData, make_optimizers, ppo_update
+    from rvo3d_tpu_torch.algo.ppo import PPOUpdate, make_optimizers
+    from rvo3d_tpu_torch.algo.rollout import RolloutBatch
 
     tr = cfg.train
     ac = ActorCritic(cfg.model, device=dev)
@@ -180,13 +180,9 @@ def update_on_batch(start_state: dict, cfg: Config, batch: dict, dev: torch.devi
     pi_opt, vf_opt = make_optimizers(tr, ac)
     for opt, state in zip((pi_opt, vf_opt), opt_states or ()):
         opt.load_state_dict(copy.deepcopy(state))     # loading shares the tensors
-    x = {k: v.to(dev) for k, v in batch.items()}
-    adv, ret = gae_advantages(x["rew"], x["val"], x["cut"][:, :, None], tr.gamma, tr.lam)
-    upd = ppo_update(ac, tr, pi_opt, vf_opt,
-                     AgentData(obs_self=x["obs_self"], obs_nbr=x["obs_nbr"],
-                               obs_mask=x["obs_mask"], act=x["act"], adv=adv, ret=ret,
-                               logp=x["logp"], val=x["val"]),
-                     torch.Generator().manual_seed(tr.seed))
+    learner = PPOUpdate(ac, tr, pi_opt, vf_opt)       # GAE and the update, as a trainer's
+    learner.prepare(RolloutBatch(**{k: v.to(dev) for k, v in batch.items()}))
+    upd = learner.update(torch.Generator().manual_seed(tr.seed))
     return {k: v.detach().cpu() for k, v in ac.state_dict().items()}, upd
 
 

@@ -30,6 +30,17 @@ generator is registered with the graph; a served request); and the
 optional [T, ...] records, written at a device step index. A capture that
 fails raises: nothing falls back to eager. The callers run eager loops on
 CPU tensors and never build a StepGraph there.
+
+The learner's training steps (algo/ppo.PPOUpdate's policy and value
+iterations, algo/bc.fit's step) are StepGraphs over bodies that run
+autograd and an optimizer step, captured whole as PyTorch's whole-network
+capture does: the forward, `backward()`, the clip and algo/adam.py's step. Such a
+body enables grad itself, sets the gradients to None before its forward
+and after its step (so the captured backward allocates them from the
+graph's pool, and no gradient outlives a step), and finds its optimizer
+state made by the warm-up, which is the first real iteration. Two
+StepGraphs that never run at once may capture into one memory pool
+(SharedPool): the policy and value steps of an update do.
 """
 
 from __future__ import annotations
@@ -64,8 +75,22 @@ def _on_stream(stream, body: Callable[[], None]) -> None:
     current.wait_stream(stream)
 
 
-def _capture(body: Callable[[], None], stream):
-    """body() captured on `stream`. The cyclic garbage collector runs just
+class SharedPool:
+    """One memory pool for the captures of StepGraphs that never run at
+    once, made at the first of them (a pool exists only on a card)."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
+def _capture(body: Callable[[], None], stream, pool=None):
+    """body() captured on `stream` (into `pool`, a SharedPool's handle, or
+    a pool of its own). The cyclic garbage collector runs just
     before and not during the capture: a dropped loop's graph lives in a
     reference cycle (the loop holds its StepGraph, which holds the loop's
     body), and freeing it mid-capture releases its memory with calls a
@@ -75,7 +100,8 @@ def _capture(body: Callable[[], None], stream):
     gc.disable()
     try:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
             body()
     finally:
         if enabled:
@@ -86,14 +112,16 @@ def _capture(body: Callable[[], None], stream):
 class StepGraph:
     """body() as one step of a loop on a CUDA device: warmed up, captured
     once and replayed (the module's docstring). `kernel_launches` is the
-    masked-GRU launches one replay makes, `replays` the replays so far."""
+    masked-GRU launches one replay makes, `replays` the replays so far.
+    `pool`: a SharedPool to capture into."""
 
-    def __init__(self, body: Callable[[], None], device):
+    def __init__(self, body: Callable[[], None], device,
+                 pool: Optional[SharedPool] = None):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph runs on a CUDA device, not {dev}; "
                              "CPU tensors take the eager loop")
-        self.body = body
+        self.body, self.pool = body, pool
         self.device = dev
         self.stream = _side_stream(dev)
         self.graph = None
@@ -109,7 +137,8 @@ class StepGraph:
             return
         if self.graph is None:
             before = masked_gru.launches
-            self.graph = _capture(self.body, self.stream)
+            self.graph = _capture(self.body, self.stream,
+                                  None if self.pool is None else self.pool.handle())
             self.kernel_launches = masked_gru.launches - before
             masked_gru.launches = before     # captured, not run
         self.graph.replay()
@@ -140,6 +169,15 @@ def copy_tree_(dst: Any, src: Any) -> None:
     elif isinstance(dst, tuple):
         for d, s in zip(dst, src):
             copy_tree_(d, s)
+
+
+def fill_static(buffers: Any, tree: Any, device) -> Any:
+    """`tree` copied into `buffers` (static_tree's, made from `tree` when
+    None); returns the buffers."""
+    if buffers is None:
+        buffers = static_tree(tree, device)
+    copy_tree_(buffers, tree)
+    return buffers
 
 
 def static_tree(tree: Any, device) -> Any:
@@ -196,9 +234,7 @@ class GraphedLoop:
         self.t.zero_()
         for _ in range(steps):
             if self.draw is not None:
-                x = self.draw(self.carry, ctx)
-                if self.inputs is None:
-                    self.inputs = static_tree(x, self.t.device)
-                copy_tree_(self.inputs, x)
+                self.inputs = fill_static(self.inputs, self.draw(self.carry, ctx),
+                                          self.t.device)
             self.graph.step()
         return clone_tree(self.carry), self.records

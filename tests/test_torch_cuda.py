@@ -16,8 +16,14 @@ four step loops as CUDA graphs (utils/graphs.py) against their eager
 bodies on the card, bit for bit: the flagship bench chunk (float64 and
 float32), the eval chunk (the kernel's launches counted through the
 replays), two rollout epochs in both action modes, and PolicyServer.act
-at B = 1, 64 and 4096, deterministic and stochastic; and a capture made
-while the garbage collector frees dropped graphs.
+at B = 1, 64 and 4096, deterministic and stochastic; a capture made
+while the garbage collector frees dropped graphs; and the learner's device
+programs as CUDA graphs against their bodies called eagerly on the card,
+bit for bit: two PPO updates of one PPOUpdate (biGRU-256, 2048 rows) with
+the KL stop never firing, firing midway, and in the per-agent schedule
+(params, both Adams' states, metrics), and 8 BC fit steps at B = 2048, the
+replays after each capture run under torch.cuda.set_sync_debug_mode
+("error"), so a host read left on those paths fails the test.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
@@ -26,6 +32,8 @@ Tolerance: atol 1e-4 in f32 with TF32 off (summation order over 265 terms
 and 10 steps); gradients: max |card - CPU| <= 1e-3 of the largest |CPU|
 gradient of each tensor, or, for the ActorCritic losses, no more than
 twice the card's plain path's distance from the CPU (see that test)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -445,3 +453,132 @@ def test_a_capture_survives_the_collector_freeing_dropped_graphs(cuda):
         gc.set_threshold(*old)
         gc.enable()
     assert torch.equal(got, x * 16)
+
+
+# ---- the learner's device programs (algo/ppo.PPOUpdate, algo/bc.fit) as
+# CUDA graphs against their bodies called eagerly on the card, bit for bit;
+# the replays run with host syncs turned into errors ----
+
+def _learner_batch(ac, cuda, lead=(16, 8, 16), seed=0):
+    """A rollout-like AgentData [T, E, N, ...] on the card: env-like
+    suffix masks, actions around the policy's mean, their logp."""
+    from rvo3d_tpu_torch.algo.ppo import AgentData
+
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randint(0, 3, lead + (1,), generator=g)
+    mask = torch.arange(S) >= S - k
+    obs = [torch.randn(lead + (12,), generator=g),
+           torch.randn(lead + (S, IN), generator=g) * mask[..., None], mask]
+    obs = [x.to(cuda) for x in obs]
+    with torch.no_grad():
+        mu, std, v = ac(*obs)
+        act = mu + std * torch.randn(lead + (3,), generator=g).to(cuda)
+        logp = ac.logp(*obs, act)
+    return AgentData(*obs, act, torch.randn(lead, generator=g).to(cuda),
+                     torch.randn(lead, generator=g).to(cuda), logp, v)
+
+
+def _learner_runs(cuda, monkeypatch, cfg, updates=2):
+    """`updates` updates of one PPOUpdate from the same start, graphed and
+    eager: per run the params, both Adams' states and the metrics; the
+    graphed run's updates after the first (warm-up and capture) under
+    set_sync_debug_mode("error")."""
+    from rvo3d_tpu_torch.algo import ppo
+    from rvo3d_tpu_torch.utils import graphs
+
+    runs = []
+    for graphed in (True, False):
+        monkeypatch.setattr(graphs, "on_card", lambda device, g=graphed: g)
+        ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0),
+                         device=cuda)
+        learner = ppo.PPOUpdate(ac, cfg, *ppo.make_optimizers(cfg, ac))
+        gen = torch.Generator().manual_seed(3)
+        metrics = []
+        for i in range(updates):
+            learner.load(_learner_batch(ac, cuda, seed=i))
+            torch.cuda.synchronize()
+            if graphed and i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics.append(learner.update(gen))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        runs.append(({k: v.clone() for k, v in ac.state_dict().items()},
+                     [[{k: v.clone() for k, v in opt.state[p].items()}
+                       for grp in opt.param_groups for p in grp["params"]]
+                      for opt in (learner.pi_opt, learner.vf_opt)], metrics))
+    return runs
+
+
+def _kl_target_midway(cuda, monkeypatch, cfg):
+    """A target_kl under the kl an update reaches after half its policy
+    iterations when nothing stops it, so that the stop fires midway."""
+    half = dataclasses.replace(cfg, train_pi_iters=cfg.train_pi_iters // 2,
+                               target_kl=1e9)
+    eager = _learner_runs(cuda, monkeypatch, half, updates=1)[1]
+    return 0.9 * float(eager[2][0].kl[0])
+
+
+@pytest.mark.parametrize("kind", ["stop_never", "stop_midway", "per_agent"])
+def test_graphed_update_equals_eager(cuda, kind, monkeypatch):
+    from rvo3d_tpu_torch.config import TrainConfig
+
+    per_agent = kind == "per_agent"
+    cfg = TrainConfig(train_pi_iters=8, train_v_iters=4, minibatch=64 if per_agent else 1024,
+                      pi_lr=1e-3, target_kl=1e9, batched_update=not per_agent,
+                      max_update_num=3)
+    if kind == "stop_midway":
+        cfg = dataclasses.replace(cfg, target_kl=_kl_target_midway(cuda, monkeypatch, cfg))
+    (p1, s1, m1), (p2, s2, m2) = _learner_runs(cuda, monkeypatch, cfg)
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+    for a, b in zip(s1, s2):                     # pi-Adam, vf-Adam
+        for x, y in zip(a, b):
+            _equal_trees(tuple(x.values()), tuple(y.values()), "adam")
+    _equal_trees(tuple(m1), tuple(m2), "metrics")
+    first = m1[0].pi_iters.tolist()
+    if kind == "stop_midway":
+        assert all(0 < i < cfg.train_pi_iters for i in first), first
+    else:
+        assert torch.cat([m.pi_iters for m in m1]).tolist() == [cfg.train_pi_iters] * (
+            2 * len(first))
+
+
+def test_graphed_bc_fit_equals_eager(cuda, monkeypatch):
+    """A fit of 8 steps at B = 2048 of a 4096-row set, graphed and eager;
+    the graphed fit's replays after the capture (steps 2-7) under
+    set_sync_debug_mode("error")."""
+    from rvo3d_tpu_torch.algo import bc
+    from rvo3d_tpu_torch.utils import graphs
+
+    g = torch.Generator().manual_seed(0)
+    n, rows, steps = 4096, 2048, 8
+    k = torch.randint(0, 3, (n, 1), generator=g)
+    mask = torch.arange(S)[None, :] >= S - k
+    data = tuple(x.to(cuda) for x in (torch.randn(n, 12, generator=g),
+                                      torch.randn(n, S, IN, generator=g) * mask[..., None],
+                                      mask, torch.rand(n, 3, generator=g) * 2 - 1))
+    idx = [torch.randint(0, n, (rows,), generator=g).to(cuda) for _ in range(steps)]
+    out = []
+    for graphed in (True, False):
+        monkeypatch.setattr(graphs, "on_card", lambda device, x=graphed: x)
+        ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(1),
+                         device=cuda)
+
+        def indices(s, graphed=graphed):
+            if graphed and s == 2:           # warm-up at 0, capture at 1
+                torch.cuda.set_sync_debug_mode("error")
+            return idx[s]
+        torch.cuda.synchronize()
+        before = mg.launches
+        try:
+            loss = bc.fit_steps(ac, data, n, steps, rows, 1e-3, None, 30.0, indices)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out.append((loss.item(), mg.launches - before,
+                    {k: v.clone() for k, v in ac.state_dict().items()}))
+    (l1, n1, p1), (l2, n2, p2) = out
+    assert l1 == l2 and n1 == n2 == steps       # one launch a step, replays counted
+    for name in p1:
+        assert torch.equal(p1[name], p2[name]), name

@@ -79,8 +79,8 @@ DTYPES = {"float64": torch.float64, "float32": torch.float32}
 class EagerSteps:
     """Stands in for graphs.StepGraph on the CPU: the body at every step."""
 
-    def __init__(self, body, device, made):
-        self.body, self.steps = body, 0
+    def __init__(self, body, device, made, pool=None):
+        self.body, self.steps, self.pool = body, 0, pool
         made.append(self)
 
     def step(self):
@@ -130,7 +130,7 @@ def test_launches_count_the_capture_launches_times_the_replays(monkeypatch):
     def body():                  # a body that launches the kernel twice
         mg.launches += 2
 
-    def capture(fn, stream):
+    def capture(fn, stream, pool=None):
         fn()
         return Graph()
     monkeypatch.setattr(mg, "launches", 0)
@@ -177,7 +177,7 @@ def test_capture_runs_without_the_cyclic_collector(monkeypatch):
         pass
 
     @contextlib.contextmanager
-    def graph(g, stream=None, capture_error_mode=None):
+    def graph(g, pool=None, stream=None, capture_error_mode=None):
         yield
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
