@@ -1,0 +1,9 @@
+"""idle_share.serve: 1 - the union of the device's kernel, copy and set
+intervals over the profiled requests' window, percent."""
+
+
+def read(run):
+    t = run.trace_summary
+    if t is None or "traced_masks" not in run.window:
+        return None
+    return 100.0 * t.idle_share
