@@ -21,7 +21,7 @@ then the control noise, from the one generator, in that order.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ from rvo3d_tpu_torch.env import geometry as geo
 from rvo3d_tpu_torch.env.env import observe, reset, reset_where, step
 from rvo3d_tpu_torch.env.state import DroneState, WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
-from rvo3d_tpu_torch.utils import graphs
+from rvo3d_tpu_torch.utils import graphs, profiler
 from rvo3d_tpu_torch.utils.graphs import clone_tree
 
 
@@ -73,7 +73,10 @@ def eval_draws(c: EvalCarry, generator: torch.Generator, p: EnvParams,
                action_mode: str = "increment"):
     """One step's standard normals, as ActorCritic.step and the env draw
     them: the policy's sample [E, N, 3] float32, then (p.noise) the control
-    noise in the absolute action's dtype, else None."""
+    noise in the absolute action's dtype, else None. While the recorder is
+    on (utils/profiler.py) the step's obs_mask is kept as
+    `eval.obs_mask`."""
+    profiler.keep("eval.obs_mask", c.obs[2])     # the step's masked-GRU input
     vel = c.env_state.vel
     eps = torch.randn(vel.shape, generator=generator, dtype=torch.float32,
                       device=vel.device)
@@ -89,15 +92,19 @@ def eval_draws(c: EvalCarry, generator: torch.Generator, p: EnvParams,
 def eval_step(ac: ActorCritic, world: WorldSpec, p: EnvParams, c: EvalCarry,
               eps: torch.Tensor, noise: Optional[torch.Tensor] = None, *,
               max_ep_len: int = 150, acceler_vel: float = 1.0,
-              std_factor: float = 1e-3, action_mode: str = "increment"
+              std_factor: float = 1e-3, action_mode: str = "increment",
+              mark: Optional[Callable[[], None]] = None
               ) -> Tuple[EvalCarry, EvalRecords]:
     """One lockstep step of every lane with the draws of eval_draws.
-    Returns (carry, records), the records [E] for the episodes that ended
-    at this step."""
+    `mark`, when given, is called between the policy's action and the env
+    step (the graphed loop's device stamp). Returns (carry, records), the
+    records [E] for the episodes that ended at this step."""
     obs_self, obs_nbr, obs_mask = c.obs
     ps = ac.step(obs_self, obs_nbr, obs_mask, std_factor, eps=eps)
     a = geo.rnd(ps.action, 2, p.parity_rounding)
     abs_action = a if action_mode == "direct" else acceler_vel * a + c.env_state.vel
+    if mark is not None:
+        mark()
     env_state, out = step(world, c.env_state, abs_action, p, noise)
     speed = torch.mean(geo.norm3(env_state.vel), dim=-1)
     ep_len = c.ep_len + 1
@@ -161,9 +168,9 @@ def make_eval_chunk(ac: ActorCritic, world: WorldSpec, p: EnvParams,
             for dt in (torch.bool, torch.bool, torch.bool, c.ep_len.dtype,
                        c.speed_sum.dtype, c.ret0.dtype)])
     loop = graphs.GraphedLoop(
-        lambda c, draws, t: eval_step(ac, world, p, c, *draws, **kw), world.device,
-        draw=lambda c, generator: eval_draws(c, generator, p, action_mode),
-        records=records)
+        lambda c, draws, t: eval_step(ac, world, p, c, *draws, mark=loop.mark, **kw),
+        world.device, draw=lambda c, generator: eval_draws(c, generator, p, action_mode),
+        records=records, name="eval", stamps=chunk)
 
     def chunk_fn(c: EvalCarry, generator: torch.Generator):
         c, rec = loop(c, chunk, generator)

@@ -54,7 +54,7 @@ from rvo3d_tpu_torch.algo.gae import gae_advantages
 from rvo3d_tpu_torch.config import TrainConfig
 from rvo3d_tpu_torch.models import ActorCritic
 from rvo3d_tpu_torch.parallel.tensor_parallel import global_sq_norm, is_sharded
-from rvo3d_tpu_torch.utils import graphs
+from rvo3d_tpu_torch.utils import graphs, profiler
 
 
 class PPOState(NamedTuple):
@@ -306,34 +306,37 @@ class PPOUpdate:
         cfg = self.cfg
         _, rows, mb = self.layout
         n_pi, n_v = cfg.train_pi_iters, cfg.train_v_iters
-        plan = []
-        for k, r in enumerate(agents):
-            off = offsets[k] if offsets is not None else None
-            if mb < rows and off is None:
-                off = draw_offsets(cfg, rows, generator)
-            if mb == rows or off is None:
-                off = ([0] * n_pi, [0] * n_v)
-            plan.append([int(r)] + list(off[0]) + list(off[1]))
-        plan = torch.tensor(plan, dtype=torch.int64)
-        dev = self.agent.device
-        plan = (plan.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
-                else plan.to(dev))
+        with profiler.span("update.plan"):
+            plan = []
+            for k, r in enumerate(agents):
+                off = offsets[k] if offsets is not None else None
+                if mb < rows and off is None:
+                    off = draw_offsets(cfg, rows, generator)
+                if mb == rows or off is None:
+                    off = ([0] * n_pi, [0] * n_v)
+                plan.append([int(r)] + list(off[0]) + list(off[1]))
+            plan = torch.tensor(plan, dtype=torch.int64)
+            dev = self.agent.device
+            plan = (plan.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
+                    else plan.to(dev))
         out = []
         for k in range(len(agents)):
-            self.agent.copy_(plan[k, 0])
-            self.pi_off.copy_(plan[k, 1:1 + n_pi])
-            self.v_off.copy_(plan[k, 1 + n_pi:])
-            for t in (self.i_pi, self.i_v, self.stopped, self.iters, self.first_loss,
-                      self.kl, self.v_loss):
-                t.zero_()
-            if cfg.fresh_logp:
-                self._fresh_logp()
-            for _ in range(n_pi):
-                self._pi_step()
-            for _ in range(n_v):
-                self._v_step()
-            out.append(tuple(t.clone() for t in (self.first_loss, self.v_loss, self.kl,
-                                                 self.iters)))
+            with profiler.span("update.pi", agent=int(agents[k])):
+                self.agent.copy_(plan[k, 0])
+                self.pi_off.copy_(plan[k, 1:1 + n_pi])
+                self.v_off.copy_(plan[k, 1 + n_pi:])
+                for t in (self.i_pi, self.i_v, self.stopped, self.iters, self.first_loss,
+                          self.kl, self.v_loss):
+                    t.zero_()
+                if cfg.fresh_logp:
+                    self._fresh_logp()
+                for _ in range(n_pi):
+                    self._pi_step()
+            with profiler.span("update.v", agent=int(agents[k])):
+                for _ in range(n_v):
+                    self._v_step()
+                out.append(tuple(t.clone() for t in (self.first_loss, self.v_loss,
+                                                     self.kl, self.iters)))
         return out
 
     def update(self, generator: Optional[torch.Generator] = None,

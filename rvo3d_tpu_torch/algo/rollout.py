@@ -29,7 +29,7 @@ forward makes gloo all_reduces that a graph cannot hold.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -161,12 +161,14 @@ def step_draws(draws: LaneDraws, carry: RolloutCarry, env_p: EnvParams, act_dim:
 
 
 def rollout_step(ac: ActorCritic, world: WorldSpec, env_p: EnvParams, cfg: TrainConfig,
-                 carry: RolloutCarry, eps: torch.Tensor, noise, epoch_ended
+                 carry: RolloutCarry, eps: torch.Tensor, noise, epoch_ended,
+                 mark: Optional[Callable[[], None]] = None
                  ) -> Tuple[RolloutCarry, RolloutBatch]:
     """One step of every lane with the draws of step_draws. `epoch_ended`
     is a bool, or a bool tensor of shape [1] (the graph's device flag).
-    Returns the carry after the step and its records, leaves [E, N, ...]
-    in RolloutBatch's order."""
+    `mark`, when given, is called between the policy's action and the env
+    step (the graphed loop's device stamp). Returns the carry after the
+    step and its records, leaves [E, N, ...] in RolloutBatch's order."""
     env_state, (obs_self, obs_nbr, obs_mask) = carry.env_state, carry.obs
     ep_len, ep_ret, stats = carry.ep_len, carry.ep_ret, carry.stats
     ps = ac.step(obs_self, obs_nbr, obs_mask, 1.0, eps=eps)
@@ -176,6 +178,8 @@ def rollout_step(ac: ActorCritic, world: WorldSpec, env_p: EnvParams, cfg: Train
     else:
         abs_action = geo.rnd(env_p.acceler * a_inc + env_state.vel, 2,
                              env_p.parity_rounding)
+    if mark is not None:
+        mark()
     env_state, out = step(world, env_state, abs_action, env_p, noise)
 
     ep_len = ep_len + 1
@@ -276,10 +280,11 @@ def make_rollout(ac: ActorCritic, world: WorldSpec, env_p: EnvParams, cfg: Train
     step_world = world if lane_worlds is None else lane_worlds
     loop = graphs.GraphedLoop(
         lambda c, draws, t: rollout_step(ac, step_world, env_p, cfg, c, *draws,
-                                         t == t_len - 1),
+                                         t == t_len - 1, mark=loop.mark),
         world.device,
         draw=lambda c, lane_draws: step_draws(lane_draws, c, env_p, ac.act_dim),
-        records=lambda c: _empty_batch(c, t_len, ac.act_dim))
+        records=lambda c: _empty_batch(c, t_len, ac.act_dim), name="rollout",
+        stamps=t_len)
 
     def rollout(carry: RolloutCarry) -> Tuple[RolloutCarry, RolloutBatch]:
         # the static carry holds no generator: the draws come from this one

@@ -3,6 +3,13 @@
 (counterpart of rvo3d_tpu/algo/trainer.py; reference train_process.py and
 multi_ppo.training_loop).
 
+While the recorder is on (utils/profiler.py) an epoch is the span
+`train.epoch` over `train.rollout`, `train.gae`, `train.update` (with
+PPOUpdate's `update.plan`, `update.pi`, `update.v`) and `train.readback`
+(the host's reads after the update), and the KL stop's counters
+`ppo.pi_iters_applied` and `ppo.pi_iters_replayed` are counted from the
+pi_iters the epoch reads anyway.
+
 On a card the epoch runs as CUDA graph replays, as the JAX trainer runs
 it as one compiled program: the rollout replays one captured step T times
 (rollout.make_rollout), GAE one captured step into the update's static
@@ -43,6 +50,7 @@ from rvo3d_tpu_torch.config import Config
 from rvo3d_tpu_torch.env.state import WorldSpec
 from rvo3d_tpu_torch.models import ActorCritic
 from rvo3d_tpu_torch.parallel.sharding import gather_lanes, reduce_lanes, shard_carry
+from rvo3d_tpu_torch.utils import profiler
 from rvo3d_tpu_torch.utils.device import resolve_device
 
 # on_phase(name, data): called at "rollout" (data None), "gae" (the
@@ -83,15 +91,18 @@ def make_train_epoch(ac: ActorCritic, world: WorldSpec, cfg: Config,
                     on_phase: Optional[PhaseHook] = None) -> EpochOutput:
         hook = on_phase or (lambda name, data: None)
         hook("rollout", None)
-        carry, batch = rollout(carry)
-        stats = carry.stats
-        if mesh is not None:
-            batch = type(batch)(*[gather_lanes(x, mesh, axis=1) for x in batch])
-            stats = _reduce_stats(stats, mesh)
+        with profiler.span("train.rollout"):
+            carry, batch = rollout(carry)
+            stats = carry.stats
+            if mesh is not None:
+                batch = type(batch)(*[gather_lanes(x, mesh, axis=1) for x in batch])
+                stats = _reduce_stats(stats, mesh)
         hook("gae", batch)
-        data = learner.prepare(batch)
+        with profiler.span("train.gae"):
+            data = learner.prepare(batch)
         hook("update", data)
-        upd = learner.update(generator, perm, offsets)
+        with profiler.span("train.update"):
+            upd = learner.update(generator, perm, offsets)
         hook("end", None)
         carry = carry._replace(stats=EpisodeStats.zero(
             stats.count.shape[0], stats.count.device, stats.ret_sum.dtype))
@@ -173,17 +184,23 @@ class Trainer:
         self.phase_hook: Optional[PhaseHook] = None
 
     def run_epoch(self) -> Dict[str, Any]:
+        with profiler.span("train.epoch"):
+            return self._run_epoch()
+
+    def _run_epoch(self) -> Dict[str, Any]:
         t0 = time.time()
         out = self._train_epoch(self.carry, self.update_generator,
                                 on_phase=self.phase_hook)
-        mean_reward = float(out.mean_reward)      # waits for the device
-        dt = time.time() - t0
+        with profiler.span("train.readback"):
+            mean_reward = float(out.mean_reward)      # waits for the device
+            dt = time.time() - t0
+            st = EpisodeStats(*[x.cpu().numpy() for x in out.stats])
+            um = UpdateMetrics(*[x.cpu().numpy() for x in out.update_metrics])
         self.carry = out.carry
-
-        st = EpisodeStats(*[x.cpu().numpy() for x in out.stats])
-        um = UpdateMetrics(*[x.cpu().numpy() for x in out.update_metrics])
         count = st.count
         tr = self.cfg.train
+        profiler.count("ppo.pi_iters_applied", int(um.pi_iters.sum()))
+        profiler.count("ppo.pi_iters_replayed", tr.train_pi_iters * um.pi_iters.size)
         metrics = {
             "epoch_time_s": dt,
             "env_steps": tr.steps_per_epoch * tr.num_envs,

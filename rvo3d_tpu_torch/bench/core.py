@@ -105,7 +105,7 @@ def make_chunk(world: WorldSpec, p: EnvParams):
     the first call), run_chunk on the CPU."""
     if graphs.on_card(world.device):
         loop = graphs.GraphedLoop(lambda s, x, t: (bench_step(world, s, p), None),
-                                  world.device)
+                                  world.device, name="bench")
         return lambda state, steps: loop(state, steps)[0]
     return lambda state, steps: run_chunk(world, state, p, steps)
 

@@ -103,7 +103,7 @@ def make_policy_chunk(ac: ActorCritic, world, p: EnvParams):
         return lambda state, steps, generator: rollout_chunk(ac, world, state, p, steps,
                                                              generator)
     loop = graphs.GraphedLoop(lambda s, eps, t: (policy_step(ac, world, s, p, eps), None),
-                              world.device, draw=policy_draw)
+                              world.device, draw=policy_draw, name="bench")
     return lambda state, steps, generator: loop(state, steps, generator)[0]
 
 

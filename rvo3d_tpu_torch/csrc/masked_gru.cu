@@ -441,9 +441,29 @@ cudaLaunchConfig_t launch_config(int clusters, int smem, cudaStream_t stream,
   return cfg;
 }
 
+// One thread writes the card's global nanosecond timer into buf[*t][col]
+// of a [rows, 3] int64 buffer, where 0 <= *t < rows: a timestamp that a CUDA
+// graph replays inside a captured step (utils/profiler.stamp).
+__global__ void globaltimer_stamp_kernel(long long* buf, const long long* t,
+                                         int col, int rows) {
+  const long long i = *t;
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (i >= 0 && i < rows) buf[i * 3 + col] = (long long)now;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Launch the one-thread stamp on `stream` (asynchronous). Returns a
+// cudaError_t (0 = success).
+int globaltimer_stamp(long long* buf, const long long* t, int col, int rows,
+                      void* stream) {
+  if (col < 0 || col > 2 || rows < 1) return (int)cudaErrorInvalidValue;
+  globaltimer_stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(buf, t, col, rows);
+  return (int)cudaGetLastError();
+}
 
 // The number of clusters of CLUSTER CTAs with `smem` bytes each, for tiles
 // of `rows` rows, that the card holds at once, into *out. Returns a

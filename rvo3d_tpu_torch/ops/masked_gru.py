@@ -20,7 +20,9 @@ through the plain scan, as the JAX custom_vjp does.
 
 The kernel's geometry (cluster split of the hidden units, row tiles,
 shared-memory bytes, grid) is computed here by `launch_geometry` and
-handed to the launcher, so the CPU tests reach it.
+handed to the launcher, so the CPU tests reach it. The same library holds
+the one-thread %globaltimer stamp of the graphed steps (`globaltimer_stamp`,
+launched by utils/profiler.stamp), so a checkout builds one library.
 """
 
 from __future__ import annotations
@@ -139,6 +141,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.masked_gru_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
                                                    ctypes.POINTER(ctypes.c_int)]
     lib.masked_gru_max_active_clusters.restype = ctypes.c_int
+    lib.globaltimer_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+    lib.globaltimer_stamp.restype = ctypes.c_int
     return lib
 
 

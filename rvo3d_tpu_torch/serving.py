@@ -15,6 +15,14 @@ new weights with `ac.load_state_dict`, which copies into them. Each graph
 keeps its own memory pool (the forward's activations at that batch), so
 at most MAX_GRAPHS batch shapes keep one: the least recently served shape
 loses its graph, and is warmed up and captured anew if it comes back.
+
+While the recorder is on (utils/profiler.py) a request is the span
+`serve.act` (attributes `batch`, `request`) over `serve.inputs` (the host
+tensors), `serve.lookup` (the graph's key and the LRU), the loop's
+`serve.copy_in`, `serve.replay` (its device time as `device_ms`) and
+`serve.copy_out`, and the server's `serve.copy_out` (the action to
+numpy); `serve.capture` and `serve.evict` carry the shape they capture or
+drop.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 
 from rvo3d_tpu_torch.config import ModelConfig
 from rvo3d_tpu_torch.models import ActorCritic
-from rvo3d_tpu_torch.utils import graphs
+from rvo3d_tpu_torch.utils import graphs, profiler
 from rvo3d_tpu_torch.utils.convert import flax_to_state_dict
 
 MAX_GRAPHS = 8      # batch shapes (and modes) that keep a CUDA graph
@@ -51,6 +59,7 @@ class PolicyServer:
         self.deterministic = deterministic
         self.device = next(ac.parameters()).device
         self._graphs: "OrderedDict[tuple, graphs.GraphedLoop]" = OrderedDict()
+        self.requests = 0       # act calls so far: the id of a request's spans
 
     @classmethod
     def from_numpy_params(cls, params: Dict[str, Any],
@@ -107,38 +116,47 @@ class PolicyServer:
         """policy(*inputs) through the graph of this shape and mode (made
         on first use, the least recently used one dropped past
         MAX_GRAPHS)."""
-        key = tuple(tuple(x.shape) for x in inputs) + (self.std_factor,)
-        loop = self._graphs.pop(key, None)
-        if loop is None:
-            loop = graphs.GraphedLoop(lambda a, x, t: (self.policy(*x), None), self.device,
-                                      draw=lambda a, request: request)
-            carry = torch.empty(inputs[0].shape[:-1] + (self.ac.act_dim,),
-                                dtype=torch.float32, device=self.device)
-        else:
-            carry = None                       # the action buffer, overwritten
-        self._graphs[key] = loop
-        while len(self._graphs) > MAX_GRAPHS:
-            self._graphs.popitem(last=False)
+        with profiler.span("serve.lookup"):
+            key = tuple(tuple(x.shape) for x in inputs) + (self.std_factor,)
+            loop = self._graphs.pop(key, None)
+            if loop is None:
+                loop = graphs.GraphedLoop(lambda a, x, t: (self.policy(*x), None),
+                                          self.device, draw=lambda a, request: request,
+                                          name="serve", timed=True,
+                                          capture_attrs={"shape": key})
+                carry = torch.empty(inputs[0].shape[:-1] + (self.ac.act_dim,),
+                                    dtype=torch.float32, device=self.device)
+            else:
+                carry = None                       # the action buffer, overwritten
+            self._graphs[key] = loop
+            while len(self._graphs) > MAX_GRAPHS:
+                old = next(iter(self._graphs))
+                with profiler.span("serve.evict", shape=old):
+                    del self._graphs[old]
         return loop(carry, 1, tuple(inputs))[0]
 
     @torch.no_grad()
     def act(self, obs_self, obs_nbr, obs_mask,
             generator: Optional[torch.Generator] = None) -> np.ndarray:
-        inputs = [torch.as_tensor(obs_self, dtype=torch.float32),
-                  torch.as_tensor(obs_nbr, dtype=torch.float32),
-                  torch.as_tensor(obs_mask, dtype=torch.bool)]
-        if not self.deterministic:
-            if generator is None:
-                raise ValueError("stochastic serving needs a generator")
-            # ActorCritic.step's draw
-            inputs.append(torch.randn(inputs[0].shape[:-1] + (self.ac.act_dim,),
-                                      generator=generator, dtype=torch.float32,
-                                      device=self.device))
-        if graphs.on_card(self.device):
-            a = self._graphed(inputs)
-        else:
-            a = self.policy(*[x.to(self.device) for x in inputs])
-        return a.cpu().numpy()
+        self.requests += 1
+        with profiler.span("serve.act", batch=len(obs_self), request=self.requests):
+            with profiler.span("serve.inputs"):
+                inputs = [torch.as_tensor(obs_self, dtype=torch.float32),
+                          torch.as_tensor(obs_nbr, dtype=torch.float32),
+                          torch.as_tensor(obs_mask, dtype=torch.bool)]
+                if not self.deterministic:
+                    if generator is None:
+                        raise ValueError("stochastic serving needs a generator")
+                    # ActorCritic.step's draw
+                    inputs.append(torch.randn(inputs[0].shape[:-1] + (self.ac.act_dim,),
+                                              generator=generator, dtype=torch.float32,
+                                              device=self.device))
+            if graphs.on_card(self.device):
+                a = self._graphed(inputs)
+            else:
+                a = self.policy(*[x.to(self.device) for x in inputs])
+            with profiler.span("serve.copy_out"):
+                return a.cpu().numpy()
 
     def act_flat(self, obs, generator: Optional[torch.Generator] = None
                  ) -> np.ndarray:

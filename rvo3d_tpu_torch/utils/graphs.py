@@ -29,7 +29,9 @@ makes, so a replay gives the eager loop's numbers bit for bit and no
 generator is registered with the graph; a served request); and the
 optional [T, ...] records, written at a device step index. A capture that
 fails raises: nothing falls back to eager. The callers run eager loops on
-CPU tensors and never build a StepGraph there.
+CPU tensors and never build a StepGraph there. Host spans cannot enter a
+replay, so the rollout and eval steps write device timestamps of their own
+inside the graph (GraphedLoop's `stamps`; utils/profiler.py reads them).
 
 The learner's training steps (algo/ppo.PPOUpdate's policy and value
 iterations, algo/bc.fit's step) are StepGraphs over bodies that run
@@ -51,6 +53,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from rvo3d_tpu_torch.ops import masked_gru
+from rvo3d_tpu_torch.utils import profiler
 
 WARMUP = 1   # eager steps on the side stream before the capture
 
@@ -113,7 +116,8 @@ class StepGraph:
     """body() as one step of a loop on a CUDA device: warmed up, captured
     once and replayed (the module's docstring). `kernel_launches` is the
     masked-GRU launches one replay makes, `replays` the replays so far.
-    `pool`: a SharedPool to capture into."""
+    `pool`: a SharedPool to capture into. The capture is recorded as the
+    span `capture_span` (name, attributes; utils/profiler.py)."""
 
     def __init__(self, body: Callable[[], None], device,
                  pool: Optional[SharedPool] = None):
@@ -128,6 +132,7 @@ class StepGraph:
         self.warmed = 0
         self.kernel_launches = 0
         self.replays = 0
+        self.capture_span = ("graph.capture", {})
 
     @torch.no_grad()
     def step(self) -> None:
@@ -137,8 +142,10 @@ class StepGraph:
             return
         if self.graph is None:
             before = masked_gru.launches
-            self.graph = _capture(self.body, self.stream,
-                                  None if self.pool is None else self.pool.handle())
+            name, attrs = self.capture_span
+            with profiler.span(name, **attrs):
+                self.graph = _capture(self.body, self.stream,
+                                      None if self.pool is None else self.pool.handle())
             self.kernel_launches = masked_gru.launches - before
             masked_gru.launches = before     # captured, not run
         self.graph.replay()
@@ -207,22 +214,62 @@ class GraphedLoop:
         hold until the next call.
     `step` holds no Python value that depends on the data.
 
+    What the loop records (utils/profiler.py), under the `name` its
+    factory gives it (rollout, eval, bench, serve): each step the spans
+    `<name>.draw`, `<name>.copy_in` and `<name>.replay`, each call
+    `<name>.copy_out`, and the capture `<name>.capture` (with
+    `capture_attrs`). `stamps=T` gives the loop a [T, 3] int64 buffer of
+    device timestamps (ns) that the step writes at its index t: column 0
+    at the step's start, 1 where the step calls `mark()` (the end of the
+    policy's work), 2 at its end; while the recorder is on, each call
+    keeps a device clone of its steps' rows as `<name>.stamps`. The stamps
+    are captured into the graph always and change no output. `timed`:
+    while the recorder is on, each replay is bracketed by two CUDA events
+    (the replay span's `device_ms`), and the host waits on the second
+    before the copy out.
+
     loop(carry, steps, ctx=None) -> (carry, records or None)."""
 
     def __init__(self, step: Callable, device, draw: Optional[Callable] = None,
-                 records: Optional[Callable] = None):
+                 records: Optional[Callable] = None, name: str = "loop",
+                 stamps: int = 0, timed: bool = False,
+                 capture_attrs: Optional[dict] = None):
         self.graph = StepGraph(self._body, device)
+        self.graph.capture_span = (f"{name}.capture", capture_attrs or {})
         self.step_fn, self.draw, self.make_records = step, draw, records
         self.carry = self.inputs = self.records = None
         self.t = torch.zeros(1, dtype=torch.int64, device=device)
+        self.names = {k: f"{name}.{k}" for k in ("draw", "copy_in", "replay",
+                                                 "copy_out", "stamps")}
+        on_cuda = torch.device(device).type == "cuda"
+        self.stamps = (torch.zeros((stamps, 3), dtype=torch.int64, device=device)
+                       if stamps and on_cuda else None)
+        self.timed = timed and on_cuda
+
+    def mark(self) -> None:
+        """Stamp the end of the policy's work in the current step."""
+        profiler.stamp(self.stamps, self.t, 1)
 
     def _body(self) -> None:
+        profiler.stamp(self.stamps, self.t, 0)
         carry, rec = self.step_fn(self.carry, self.inputs, self.t)
         if self.records is not None:
             for buf, x in zip(self.records, rec):
                 buf.index_copy_(0, self.t, x[None])
         copy_tree_(self.carry, carry)
+        profiler.stamp(self.stamps, self.t, 2)
         self.t.add_(1)
+
+    def _replay(self, handle) -> None:
+        if handle is None or not self.timed:
+            self.graph.step()
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        self.graph.step()
+        end.record()
+        end.synchronize()
+        profiler.device_time(handle, start, end)
 
     def __call__(self, carry: Any, steps: int, ctx: Any = None):
         if self.carry is None:
@@ -232,9 +279,17 @@ class GraphedLoop:
         elif carry is not None:
             copy_tree_(self.carry, carry)
         self.t.zero_()
+        names = self.names
         for _ in range(steps):
             if self.draw is not None:
-                self.inputs = fill_static(self.inputs, self.draw(self.carry, ctx),
-                                          self.t.device)
-            self.graph.step()
-        return clone_tree(self.carry), self.records
+                with profiler.span(names["draw"]):
+                    inputs = self.draw(self.carry, ctx)
+                with profiler.span(names["copy_in"]):
+                    self.inputs = fill_static(self.inputs, inputs, self.t.device)
+            with profiler.span(names["replay"]) as handle:
+                self._replay(handle)
+        with profiler.span(names["copy_out"]):
+            out = clone_tree(self.carry)
+        if self.stamps is not None:
+            profiler.keep(names["stamps"], self.stamps[:steps])
+        return out, self.records

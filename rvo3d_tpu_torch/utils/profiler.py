@@ -1,24 +1,198 @@
-"""Profiling and numerics-debug helpers (counterpart of
-rvo3d_tpu/utils/profiler.py):
+"""Tracing and numerics-debug helpers (counterpart of
+rvo3d_tpu/utils/profiler.py).
+
+The recorder: what the port's layers record about their own work, for the
+layers' metrics to read.
+
+  span(name, **attrs)  a context manager around a block of host work; its
+                       `__enter__` returns a handle (None when off)
+  count(name, n=1)     adds n to a counter
+  keep(name, x)        keeps a clone of tensor x, on x's device, made on
+                       the current stream with no sync (the graphed loops'
+                       device stamps, the evaluator's masks)
+  device_time(handle, start, end)   keeps two CUDA events as the device
+                       time of the span `handle` (attribute `device_ms`)
+  stamp(buf, t, col)   launches the one-thread kernel that writes the
+                       card's %globaltimer (ns) into buf[t, col], t an int64
+                       device step index: a timestamp that a CUDA graph
+                       holds (csrc/masked_gru.cu's `globaltimer_stamp`); a
+                       no-op on CPU tensors and for buf None
+  recorded()           -> Recording(spans, counters, kept): device values
+                       become host numbers here, never while recording
+  clear()              forgets everything recorded
+
+The switch: the recorder is on exactly while a torch profiler runs
+(torch.profiler.profile, `trace` below). Off, `span` returns one shared
+no-op context after a single check, and `count`, `keep` and
+`device_time` return at once: nothing is allocated or recorded. On, each
+span is also a profiler range of the same name (record_function's), so it
+sits in the profiler's trace beside the device's work; its start and end are
+time.time_ns() (Unix nanoseconds, the clock of the profiler's host
+events) taken inside that range. Spans nest through their parent's index;
+a span without a `request` attribute takes its parent's, so the spans of
+one served request share its id. Python's garbage collections are
+recorded as `gc.collect` spans (attribute `generation`) by a gc.callbacks
+hook that checks the switch.
 
   trace(log_dir)       torch.profiler over CPU and, with a card, CUDA
-                       activity; writes <log_dir>/trace.json (Chrome trace
-                       format) and yields the profiler, whose
-                       key_averages() sums the ops by name
+                       activity, the recorder cleared at its start; writes
+                       <log_dir>/trace.json (Chrome trace format) and
+                       yields the profiler, whose key_averages() sums the
+                       ops by name
   debug_nans(enable)   autograd anomaly detection with NaN checks, and a
                        forward hook on every module that raises on the
                        first non-finite output
-  StepTimer            steps/s and their EMA
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import time
-from typing import Iterator, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
+
+on = torch._C._autograd._profiler_enabled     # the switch: a profiler runs
+# a profiler range of the given name: record_function's, entered in ~1 us
+# where record_function takes ~10 us
+profiler_range = torch._C._profiler._RecordFunctionFast
+
+
+@dataclass
+class Span:
+    name: str
+    start: int                 # ns, time.time_ns(): the profiler's host clock
+    end: int
+    parent: Optional[int]      # index of the enclosing span, None at the top
+    attrs: Dict[str, Any] = field(default_factory=dict)
+
+
+class Recording(NamedTuple):
+    spans: List[Span]
+    counters: Dict[str, float]
+    kept: Dict[str, List[torch.Tensor]]    # name -> host copies, in keeping order
+
+
+class _Recorder:
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self.spans: List[list] = []        # [name, start, end, parent, attrs]
+        self.stack: List[int] = []
+        self.counters: Dict[str, float] = {}
+        self.kept: Dict[str, List[torch.Tensor]] = {}
+        self.timed: List[tuple] = []       # (span index, start event, end event)
+
+
+_REC = _Recorder()
+
+
+class _NoSpan:
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "rf", "rec", "idx")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self) -> int:
+        self.rf = profiler_range(self.name)
+        self.rf.__enter__()
+        rec = _REC
+        parent = rec.stack[-1] if rec.stack else None
+        if parent is not None and "request" not in self.attrs:
+            req = rec.spans[parent][4].get("request")
+            if req is not None:
+                self.attrs["request"] = req
+        self.idx = len(rec.spans)
+        self.rec = [self.name, time.time_ns(), None, parent, self.attrs]
+        rec.spans.append(self.rec)
+        rec.stack.append(self.idx)
+        return self.idx
+
+    def __exit__(self, *exc):
+        self.rec[2] = time.time_ns()
+        stack = _REC.stack
+        if stack and stack[-1] == self.idx:
+            stack.pop()
+        self.rf.__exit__(None, None, None)
+        return False
+
+
+def span(name: str, **attrs):
+    if not on():
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def count(name: str, n: float = 1) -> None:
+    if on():
+        _REC.counters[name] = _REC.counters.get(name, 0) + n
+
+
+def keep(name: str, x: torch.Tensor) -> None:
+    if on():
+        _REC.kept.setdefault(name, []).append(x.clone())
+
+
+def device_time(handle: Optional[int], start, end) -> None:
+    if handle is not None and on():
+        _REC.timed.append((handle, start, end))
+
+
+def stamp(buf: Optional[torch.Tensor], t: torch.Tensor, col: int) -> None:
+    if buf is None or not buf.is_cuda:
+        return
+    from rvo3d_tpu_torch.ops import masked_gru
+
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        err = masked_gru.library().globaltimer_stamp(buf.data_ptr(), t.data_ptr(), col,
+                                                     buf.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"globaltimer_stamp launch failed: cudaError {err}")
+
+
+def recorded() -> Recording:
+    rec = _REC
+    spans = [Span(n, s, e, p, dict(a)) for n, s, e, p, a in rec.spans]
+    for idx, start, end in rec.timed:
+        spans[idx].attrs["device_ms"] = start.elapsed_time(end)
+    return Recording(spans, dict(rec.counters),
+                     {k: [x.cpu() for x in v] for k, v in rec.kept.items()})
+
+
+def clear() -> None:
+    _REC.clear()
+
+
+_GC_OPEN: List[_Span] = []
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    if phase == "start":
+        if on():
+            s = _Span("gc.collect", {"generation": info["generation"]})
+            s.__enter__()
+            _GC_OPEN.append(s)
+    elif _GC_OPEN:
+        _GC_OPEN.pop().__exit__(None, None, None)
+
+
+gc.callbacks.append(_on_gc)
 
 
 @contextlib.contextmanager
@@ -27,6 +201,7 @@ def trace(log_dir: str = "rvo3d_trace") -> Iterator[torch.profiler.profile]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    clear()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
@@ -54,25 +229,3 @@ def debug_nans(enable: bool = True) -> Iterator[None]:
     finally:
         hook.remove()
         torch.autograd.set_detect_anomaly(*prev)
-
-
-class StepTimer:
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self._avg: Optional[float] = None
-        self._last = time.perf_counter()
-        self.total_steps = 0
-
-    def tick(self, steps: int = 1) -> float:
-        now = time.perf_counter()
-        dt = now - self._last
-        self._last = now
-        self.total_steps += steps
-        rate = steps / dt if dt > 0 else 0.0
-        self._avg = rate if self._avg is None else (
-            self.ema * self._avg + (1 - self.ema) * rate)
-        return rate
-
-    @property
-    def steps_per_sec(self) -> float:
-        return self._avg or 0.0

@@ -23,7 +23,13 @@ bit for bit: two PPO updates of one PPOUpdate (biGRU-256, 2048 rows) with
 the KL stop never firing, firing midway, and in the per-agent schedule
 (params, both Adams' states, metrics), and 8 BC fit steps at B = 2048, the
 replays after each capture run under torch.cuda.set_sync_debug_mode
-("error"), so a host read left on those paths fails the test.
+("error"), so a host read left on those paths fails the test; and the
+recorder (utils/profiler.py) on the card: the device stamps of the graphed
+eval and rollout steps rise within and across steps and lie between eager
+stamps taken just before and after each step, the eval masks kept from
+the graphed chunk equal those its eager body ran, and MAX_GRAPHS + 1
+shapes served in turn give one `serve.evict`, one `serve.capture` and a
+device time on each `serve.replay`.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
@@ -582,3 +588,135 @@ def test_graphed_bc_fit_equals_eager(cuda, monkeypatch):
     assert l1 == l2 and n1 == n2 == steps       # one launch a step, replays counted
     for name in p1:
         assert torch.equal(p1[name], p2[name]), name
+
+
+# ---- the recorder on a card (utils/profiler.py): the device stamps inside
+# the graphed rollout and eval steps, the kept eval masks, the timed serving
+# replays, and the capture and eviction spans past MAX_GRAPHS shapes ----
+
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+@pytest.mark.parametrize("loop", ["eval", "rollout"])
+def test_stamps_rise_and_lie_inside_each_replay(cuda, loop, monkeypatch):
+    from rvo3d_tpu_torch.algo.evaluator import init_eval_carry, make_eval_chunk
+    from rvo3d_tpu_torch.algo.rollout import init_rollout_carry, make_rollout
+    from rvo3d_tpu_torch.config import TrainConfig
+    from rvo3d_tpu_torch.utils import graphs, profiler
+    from rvo3d_tpu_torch.worlds import load_world
+
+    steps = 12
+    outer = torch.zeros((steps, 3), dtype=torch.int64, device=cuda)
+    at = torch.zeros(1, dtype=torch.int64, device=cuda)
+    made = []
+
+    class Bracketed(graphs.StepGraph):
+        """Eager stamps on the stream just before and after each step."""
+
+        def __init__(self, *a):
+            super().__init__(*a)
+            made.append(self)
+
+        def step(self):
+            profiler.stamp(outer, at, 0)
+            super().step()
+            profiler.stamp(outer, at, 2)
+            at.add_(1)
+    monkeypatch.setattr(graphs, "StepGraph", Bracketed)
+    wd = load_world("world16_dense")
+    world = wd.spec(device=cuda)
+    p = EnvParams(num_drones=wd.drone_num)
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0), device=cuda)
+    if loop == "eval":
+        chunk = make_eval_chunk(ac, world, p, max_ep_len=5, chunk=steps,
+                                action_mode="direct")
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        run = lambda: chunk(init_eval_carry(world, p, 32), gen)  # noqa: E731
+    else:
+        cfg = TrainConfig(steps_per_epoch=steps, num_envs=32, max_ep_len=5)
+        roll = make_rollout(ac, world, p, cfg)
+        run = lambda: roll(init_rollout_carry(  # noqa: E731
+            world, p, 32, torch.Generator(device=cuda).manual_seed(2)))
+
+    def check(got):
+        torch.cuda.synchronize()
+        got, out = got.tolist(), outer.tolist()
+        assert len(got) == steps
+        for t, (start, policy, end) in enumerate(got):
+            assert out[t][0] <= start < policy < end <= out[t][2], (t, got[t], out[t])
+            if t:
+                assert got[t - 1][2] <= start
+        at.zero_()
+    run()            # the eager warm-up, the capture's replay and 10 more
+    check(made[0].body.__self__.stamps.clone())
+    profiler.clear()
+    with _profiled():
+        run()        # 12 replays, the stamps kept
+    (got,) = profiler.recorded().kept[f"{loop}.stamps"]
+    profiler.clear()
+    check(got)
+
+
+def test_kept_eval_masks_equal_those_the_eager_loop_ran(cuda):
+    from rvo3d_tpu_torch.algo.evaluator import eval_chunk, init_eval_carry, make_eval_chunk
+    from rvo3d_tpu_torch.utils import profiler
+    from rvo3d_tpu_torch.worlds import load_world
+
+    wd = load_world("world16_dense")
+    world = wd.spec(device=cuda)
+    p = EnvParams(num_drones=wd.drone_num)
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0), device=cuda)
+    kw = dict(max_ep_len=4, std_factor=1.0, action_mode="direct")
+    c0 = init_eval_carry(world, p, 32)
+    chunk = make_eval_chunk(ac, world, p, chunk=10, **kw)
+    chunk(c0, torch.Generator(device=cuda).manual_seed(5))     # warm-up and capture
+    kept = []
+    for graphed in (True, False):
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        profiler.clear()
+        with _profiled():
+            if graphed:
+                chunk(c0, gen)
+            else:
+                eval_chunk(ac, world, p, c0, gen, 10, **kw)
+        kept.append(profiler.recorded().kept["eval.obs_mask"])
+    profiler.clear()
+    assert len(kept[0]) == len(kept[1]) == 10
+    for t, (a, b) in enumerate(zip(*kept)):
+        assert torch.equal(a, b), t
+
+
+def test_past_max_graphs_one_shape_is_evicted_and_one_captured(cuda):
+    from rvo3d_tpu_torch import serving
+    from rvo3d_tpu_torch.serving import PolicyServer
+    from rvo3d_tpu_torch.utils import profiler
+
+    ac = ActorCritic(ModelConfig(), generator=torch.Generator().manual_seed(0), device=cuda)
+    srv = PolicyServer(ac)
+    rng = np.random.default_rng(0)
+
+    def obs(b):
+        return (rng.normal(size=(b, 12)).astype(np.float32),
+                rng.normal(size=(b, 10, 9)).astype(np.float32), rng.random((b, 10)) > 0.5)
+    sizes = [8 * (i + 1) for i in range(serving.MAX_GRAPHS + 1)]
+    for b in sizes[:-1]:
+        for _ in range(2):                     # eager warm-up, then the capture
+            srv.act(*obs(b))
+    profiler.clear()
+    with _profiled():
+        for _ in range(2):
+            x = obs(sizes[-1])
+            got = srv.act(*x)
+            want = srv.policy(*[torch.as_tensor(o, device=cuda) for o in x]).cpu().numpy()
+            np.testing.assert_array_equal(got, want)
+    spans = profiler.recorded().spans
+    profiler.clear()
+    evicts = [s for s in spans if s.name == "serve.evict"]
+    captures = [s for s in spans if s.name == "serve.capture"]
+    assert len(evicts) == 1 and evicts[0].attrs["shape"][0] == (sizes[0], 12)
+    assert len(captures) == 1 and captures[0].attrs["shape"][0] == (sizes[-1], 12)
+    replays = [s for s in spans if s.name == "serve.replay"]
+    assert len(replays) == 2 and all(s.attrs["device_ms"] > 0 for s in replays)
+    assert len(srv._graphs) == serving.MAX_GRAPHS
