@@ -147,6 +147,22 @@ plain version on them (`kernel_at_path_rows`, atol 1e-4; a graphed loop's
 first step runs eagerly, and its launch is the one kept); `bf16_serve` also
 holds its bfloat16 forward on the card to the CPU's, within 1e-4 plus two
 bfloat16 steps at the output's largest value.
+The env step's all-pairs VO runs on the card as the hand-written kernel of
+rvo3d_tpu_torch/ops/vo_pairs.py (csrc/vo_pairs.cu) in every phase that
+steps the env there: `build` builds it beside the masked GRU; the
+`env_card_vs_cpu_f64`, `evaluate`, `multi_world_env_card_vs_cpu` and
+`bench_env` lines give its launches (`vo_launches`), and each `train_epoch`
+line its launches in the rollout; `vo_pairs_kernel` (right after
+`env_card_vs_cpu_f64`) holds both of its modes to the plain PyTorch path
+on the card at the main paths' shapes, float32 states after 10 steps of
+the noisy waypoint controller: 1024 lanes x 32 drones of world32_mix (the
+eval cell), 128 x 16 of world16_dense (the rollout) and 16384 x 8 of the
+flagship world (`bench_env`), and the same lanes crowded within 0.8 m of
+their centres, which must list neighbours; flags and the non-finite
+pattern must be equal and values within 2 ulp (`vo_within`, the card
+tests' limit). It times both beside the kernel's bound (`vo_bound`).
+The `kernels` line has a row for it, whose launches count the env phases
+and each training epoch's rollout (`train_rollout`).
 Each phase prints one JSON line with its wall-clock seconds, and a `total`
 line the script's; a failed phase exits non-zero. The last line is
 {"ok": true, "device": {...}}.
@@ -337,6 +353,68 @@ def gru_bound(xs, ms, fwd, ndirs=2):
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ms_f32_simt": max(flops / F32_PEAK, t_bytes) * 1e3}
+
+
+# IEEE operations of one pair as csrc/vo_pairs.cu runs them (pair_vo: the
+# sums of 3 with their zero-adds, asin, acos, sqrt, a division and nearbyint
+# each one; comparisons and selects none); rows and the rank add no arithmetic
+VO_FLOPS_PER_PAIR = 108
+
+
+def vo_bound(states, actions, others=None, nm=0, buildings=None, building_mask=None):
+    """The least time of one float32 launch of the VO pair kernel on these
+    inputs: the larger of its operations (VO_FLOPS_PER_PAIR a pair, outside
+    the tensor cores) and its bytes (each input read once, each output
+    written once), for the observe mode when `nm` is given, else the reward
+    mode."""
+    if states.element_size() != 4:
+        raise ValueError(f"vo_bound times float32 launches, got {states.dtype}")
+    n, item = states.shape[-2], states.element_size()
+    rows = states.numel() // 12
+    m = n if others is None else others.shape[-2]
+    read = states.nbytes + actions.nbytes + (0 if others is None else others.nbytes)
+    if nm:
+        read += sum(t.nbytes for t in (buildings, building_mask) if t is not None)
+        written = rows * (nm * 9 * item + nm + 2 + item)
+    else:
+        written = rows * (1 + 2 * item)
+    flops = rows * m * VO_FLOPS_PER_PAIR
+    t_ops, t_bytes = flops / F32_PEAK, (read + written) / HBM_BYTES_S
+    return {"flops": flops, "bytes": read + written, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def vo_within(got, want, what):
+    """Raise unless the kernel's outputs `got` equal the plain path's `want`:
+    flags and the non-finite pattern exactly, float32 values to 2 ulp of the
+    larger value (an ulp each side, tests/test_torch_cuda.py's limit for the
+    CUDA math library's asin and acos of two toolkits). Returns the largest
+    |difference| of the finite values."""
+    import torch
+
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: output {i} (flags) differs")
+            continue
+        if b.dtype != torch.float32:
+            raise ValueError(f"vo_within holds float32 outputs, got {b.dtype}")
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(a), test(b)):
+                raise AssertionError(f"{what}: output {i}'s non-finite pattern differs")
+        fin = torch.isfinite(b)
+        a, b = a[fin], b[fin]
+        if not b.numel():
+            continue
+        big = torch.maximum(a.abs(), b.abs())
+        ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+        diff = (a - b).abs()
+        if not bool((diff <= 2 * ulp).all()):
+            raise AssertionError(f"{what}: output {i} differs by up to "
+                                 f"{float(diff.max())}, beyond 2 ulp")
+        err = max(err, float(diff.max()))
+    return err
 
 
 def encoder_view(obs_nbr, obs_mask):
@@ -709,6 +787,7 @@ def main(argv=None) -> int:
     from rvo3d_tpu_torch.models import encoder as encoder_mod
     from rvo3d_tpu_torch.ops import _build
     from rvo3d_tpu_torch.ops import masked_gru as mg
+    from rvo3d_tpu_torch.ops import vo_pairs as vp
     from rvo3d_tpu_torch.serving import PolicyServer
     from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
     from rvo3d_tpu_torch.worlds import load_world
@@ -723,13 +802,28 @@ def main(argv=None) -> int:
                                  "cuda": torch.version.cuda})
 
     def build():
-        mg.library()
-        info = _build.BUILD_INFO["masked_gru"]
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        return {"kernel": "masked_gru", "nvcc_seconds": info["seconds"],
-                "ptxas": ptxas}
+        out = {}
+        for name, mod in (("masked_gru", mg), ("vo_pairs", vp)):
+            mod.library()
+            info = _build.BUILD_INFO[name]
+            ptxas = [ln.strip() for ln in info["log"].splitlines()
+                     if "registers" in ln or "spill" in ln]
+            out[name] = {"nvcc_seconds": info["seconds"], "ptxas": ptxas}
+        return out
     run_phase("build", build)
+
+    # the VO kernel's launches in each phase that steps the env on the card
+    vo_launches_by_phase = {}
+
+    def counted(name, fn):
+        def run():
+            v0 = vp.launches
+            out = fn()
+            vo_launches_by_phase[name] = vp.launches - v0
+            if vo_launches_by_phase[name] == 0:
+                raise AssertionError(f"{name} never launched the VO pair kernel")
+            return {**out, "vo_launches": vo_launches_by_phase[name]}
+        return run
 
     # ---- kernel vs plain at the serving path's shapes ----
     cfg = ModelConfig()
@@ -890,7 +984,69 @@ def main(argv=None) -> int:
             raise AssertionError(f"card vs CPU max |diff| {worst} > 1e-9")
         return {"steps": 40, "lanes": 8, "max_abs_diff": worst, "atol": 1e-9,
                 "neighbour_slots_seen": flagged, "finished_drone_steps": finished}
-    run_phase("env_card_vs_cpu_f64", env_check)
+    run_phase("env_card_vs_cpu_f64", counted("env_card_vs_cpu_f64", env_check))
+
+    # ---- the VO kernel against the plain path on the card, and timed ----
+    vo_rows = {}
+
+    def vo_pairs_kernel():
+        from rvo3d_tpu_torch.bench import core as bench_core
+        from rvo3d_tpu_torch.bench.flagship import flagship_world
+        from rvo3d_tpu_torch.env import rvo
+        from rvo3d_tpu_torch.env.env import drone_states_12
+
+        shapes = (("eval_1024x32", load_world("world32_mix").spec(device=dev), 1024),
+                  ("rollout_128x16", load_world(WORLD).spec(device=dev), 128),
+                  ("bench_16384x8",
+                   bench_core.world_spec(flagship_world(), dev, torch.float32), 16384))
+        for label, w, lanes in shapes:
+            p_w = EnvParams(num_drones=w.num_drones)
+            env = DroneEnv(w, p_w, num_envs=lanes)
+            state, _ = env.reset()
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            for _ in range(10):
+                noise = 0.5 * torch.randn(state.pos.shape, generator=g, device=dev)
+                act = geo.rnd(waypoint_controller(state, w) + noise, 2)
+                state, out = env.step(state, act)
+                state = env.reset_where(state, out.done)
+            s12, _ = drone_states_12(w, state, p_w)
+            bld = (w.buildings, w.building_mask)
+            # the same lanes crowded: each drone pulled to within 0.8 m of
+            # its lane's centre and flying (and commanded) toward it, so
+            # rows list neighbours and the top-nm selection runs at this
+            # shape whatever the flown steps listed
+            crowd = s12.clone()
+            c = crowd[..., 0:3].mean(-2, keepdim=True)
+            off = crowd[..., 0:3] - c
+            reach = off.norm(dim=-1, keepdim=True).amax(-2, keepdim=True)
+            crowd[..., 0:3] = c + off * (0.8 / reach.clamp_min(1e-3))
+            crowd[..., 3:6] = geo.rnd(-0.5 * torch.sign(off), 2)
+            crowd_act = crowd[..., 3:6].clone()
+            row = {"lanes": lanes, "drones": w.num_drones}
+            for kind, (x, a) in (("flown", (s12, act)), ("crowded", (crowd, crowd_act))):
+                got = vp.observe(x, a, *bld, p_w)
+                listed = int(got[1].sum())
+                if kind == "crowded" and listed == 0:
+                    raise AssertionError(f"{label}: the crowded lanes list no neighbour")
+                row[f"listed_slots_{kind}"] = listed
+                row[f"full_rows_{kind}"] = int(got[1].all(-1).sum())
+                vo_within(got, rvo.vo_observe_plain(x, a, *bld, p_w),
+                          f"{label} {kind} observe")
+                vo_within(vp.reward_info(x, a, p_w), rvo.vo_reward_info_plain(x, a, p_w),
+                          f"{label} {kind} reward")
+            runs = {"reward": (lambda: vp.reward_info(s12, act, p_w),
+                               lambda: rvo.vo_reward_info_plain(s12, act, p_w)),
+                    "observe": (lambda: vp.observe(s12, act, *bld, p_w),
+                                lambda: rvo.vo_observe_plain(s12, act, *bld, p_w))}
+            for mode, (kernel, plain) in runs.items():
+                err = vo_within(kernel(), plain(), f"{label} {mode}")
+                b = vo_bound(s12, act, nm=p_w.neighbor_num if mode == "observe" else 0,
+                             buildings=bld[0], building_mask=bld[1])
+                row[mode] = {"ms": cuda_ms(kernel, 50), "plain_ms": cuda_ms(plain, 10),
+                             "max_abs_err": err, **b}
+            vo_rows[label] = row
+        return {"shapes": vo_rows, "card": smi}
+    run_phase("vo_pairs_kernel", vo_pairs_kernel)
 
     # ---- the main path: evaluate closed-loop, then serve ----
     world = wd.spec(device=dev)
@@ -913,7 +1069,7 @@ def main(argv=None) -> int:
             raise AssertionError("evaluate never launched the masked GRU kernel")
         return {"world": WORLD, "lanes": LANES, "drones": wd.drone_num,
                 "gru_launches": mg.launches, **m}
-    run_phase("evaluate", run_eval)
+    run_phase("evaluate", counted("evaluate", run_eval))
 
     server = PolicyServer(ac, nm=p.neighbor_num)
 
@@ -1041,7 +1197,7 @@ def main(argv=None) -> int:
         def hook(name, data):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            marks.append((ev, mg.launches))
+            marks.append((ev, mg.launches, vp.launches))
             if name == "gae":
                 active = data.obs_mask.sum(-1)
                 keep["rows"], keep["multi"] = active.numel(), (active > 1).sum()
@@ -1059,12 +1215,13 @@ def main(argv=None) -> int:
             torch.cuda.reset_peak_memory_stats()
             m = trainer.run_epoch()
             torch.cuda.synchronize()
-            (e0, l0), (e1, l1), (e2, l2), (e3, l3) = marks
+            (e0, l0, v0), (e1, l1, v1), (e2, l2, _), (e3, l3, _) = marks
             line = {"phase": "train_epoch", "epoch": epoch,
                     "epoch_time_s": m["epoch_time_s"], "steps_per_sec": m["steps_per_sec"],
                     "rollout_ms": e0.elapsed_time(e1), "gae_ms": e1.elapsed_time(e2),
                     "update_ms": e2.elapsed_time(e3),
                     "gru_launches_rollout": l1 - l0, "gru_launches_update": l3 - l2,
+                    "vo_launches_rollout": v1 - v0,
                     "pi_iters": m["pi_iters"], "kl": m["kl"], "pi_loss": m["pi_loss"],
                     "v_loss": m["v_loss"], "mean_step_reward": m["mean_step_reward"],
                     "episodes": sum(m["episodes"]),
@@ -1081,6 +1238,11 @@ def main(argv=None) -> int:
             if line["gru_launches_rollout"] == 0 or line["gru_launches_update"] == 0:
                 raise AssertionError(f"epoch {epoch}: the kernel was not launched "
                                      "in the rollout and in the update")
+            if line["vo_launches_rollout"] == 0:
+                raise AssertionError(f"epoch {epoch}: the rollout never launched "
+                                     "the VO pair kernel")
+            vo_launches_by_phase["train_rollout"] = (
+                vo_launches_by_phase.get("train_rollout", 0) + line["vo_launches_rollout"])
         launches_by_phase["train"] = mg.launches
         trained.update(trainer=trainer, window=keep["window"])
         # where a rollout step's time goes, at the trainer's carry
@@ -1295,7 +1457,8 @@ def main(argv=None) -> int:
         return {"worlds": list(W32_POPULATIONS), "lanes": MULTI_LANES,
                 "drones": wd32.drone_num, "steps": MULTI_STEPS, "dtype": "float64",
                 "max_abs_diff": worst, "atol": 1e-12, **seen, "card": smi}
-    run_phase("multi_world_env_card_vs_cpu", multi_env_check)
+    run_phase("multi_world_env_card_vs_cpu",
+              counted("multi_world_env_card_vs_cpu", multi_env_check))
 
     # ---- the committed w32_m3s product on both world32_mix populations ----
     with open(W32_CONFIG) as f:
@@ -2717,7 +2880,7 @@ def main(argv=None) -> int:
         if problems:
             raise AssertionError(f"{problems}: {out}")
         return out
-    run_phase("bench_env", bench_env)
+    run_phase("bench_env", counted("bench_env", bench_env))
 
     def bench_ladder():
         """Rungs 4 and 5 at full size, and lane 1 of the rung-5 world (the
@@ -3028,7 +3191,16 @@ def main(argv=None) -> int:
         "one_direction_by_B": {b: {k: r[k] for k in ("kernel_ms", "plain_ms",
                                                      "cudnn_gru_unmasked_ms", "bound_ms",
                                                      "bound_by", "max_abs_err")}
-                               for b, r in gru_rows.items()}}]})
+                               for b, r in gru_rows.items()}}, {
+        "name": "vo_pairs", "route": "cuda",
+        "source": "rvo3d_tpu_torch/csrc/vo_pairs.cu",
+        "replaces": None,   # no TPU kernel: the JAX package leaves the pairs to XLA
+        "launches": sum(vo_launches_by_phase.values()),
+        "launches_by_phase": vo_launches_by_phase,
+        "max_abs_err": max(r[m]["max_abs_err"] for r in vo_rows.values()
+                           for m in ("reward", "observe")),
+        "by_shape": {k: {m: {x: r[m][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for m in ("reward", "observe")} for k, r in vo_rows.items()}}]})
     if launches == 0:
         print("chip_smoke: the main path launched no masked GRU kernel", file=sys.stderr)
         return 1

@@ -10,6 +10,12 @@ config_vo_circle2 (rvo_inter.py:116-196) become selects:
                                                  1/(exp_time+0.2)]
 Neighbour gates: drones within 10 m (self excluded by exact position
 equality); buildings with h > z-2 and horizontal distance <= 5 m.
+
+vo_reward_info and vo_observe take the plain PyTorch version below for CPU
+tensors, and for CUDA tensors the hand-written kernel of ops/vo_pairs.py
+(csrc/vo_pairs.cu), which computes each row's pairs and reduces them in
+one launch with the same arithmetic; the card tests hold it to the plain
+version.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.env import geometry as geo
+from rvo3d_tpu_torch.ops import vo_pairs
 
 INF = math.inf
 
@@ -136,7 +143,15 @@ class VORewardInfo(NamedTuple):
 
 
 def vo_reward_info(states, actions, p: EnvParams, others=None) -> VORewardInfo:
-    """config_vo_reward's urgency aggregates (rvo_inter.py:63-83)."""
+    """config_vo_reward's urgency aggregates (rvo_inter.py:63-83): the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if states.is_cuda:
+        return VORewardInfo(*vo_pairs.reward_info(states, actions, p, others))
+    return vo_reward_info_plain(states, actions, p, others)
+
+
+def vo_reward_info_plain(states, actions, p: EnvParams, others=None) -> VORewardInfo:
+    """vo_reward_info in plain PyTorch."""
     pw = pairwise_vo(states, actions, p, others)
     flagged = pw.vo_flag & pw.valid
     inf = torch.full_like(pw.exp_time, INF)
@@ -169,7 +184,17 @@ def vo_observe(states, actions, buildings, building_mask, p: EnvParams,
                others=None) -> VOObservation:
     """config_vo_inf (rvo_inter.py:20-61): flagged neighbour blocks sorted by
     (input_exp_time asc, min_dis desc); the nm most urgent (the last nm of
-    the sorted list) fill the last slots; plus collision/urgency aggregates."""
+    the sorted list) fill the last slots; plus collision/urgency aggregates.
+    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if states.is_cuda:
+        return VOObservation(*vo_pairs.observe(states, actions, buildings,
+                                               building_mask, p, others))
+    return vo_observe_plain(states, actions, buildings, building_mask, p, others)
+
+
+def vo_observe_plain(states, actions, buildings, building_mask, p: EnvParams,
+                     others=None) -> VOObservation:
+    """vo_observe in plain PyTorch."""
     pw = pairwise_vo(states, actions, p, others)
     m = pw.valid.shape[-1]
     flagged = pw.vo_flag & pw.valid

@@ -9,16 +9,17 @@ no Python value that depends on the data, so one capture replays every
 step:
 
   - the first call of `StepGraph.step` runs the body eagerly on a side
-    stream: the warm-up, where the masked-GRU kernel is built with nvcc,
-    its launch geometry is cached and cuBLAS takes its workspace on the
+    stream: the warm-up, where the hand-written kernels are built with
+    nvcc, the masked GRU's launch geometry is cached and cuBLAS takes its workspace on the
     stream the capture uses. It is a real step;
   - the second call captures the body on that stream (torch.cuda.graph)
     and replays it; every later call replays it.
 
-A replay launches the captured kernels without Python, so
-ops/masked_gru.py's `launches`, which counts its Python launches, would
-miss them: the capture's launches are taken back off the count, and each
-replay adds them again. The count stays the number of kernels the card ran.
+A replay launches the captured kernels without Python, so the
+hand-written kernels' `launches` (ops/masked_gru.py, ops/vo_pairs.py), which
+count their Python launches, would miss them: the capture's launches are
+taken back off each count, and each replay adds them again. The counts stay
+the number of kernels the card ran.
 
 GraphedLoop is the loop every user runs (the bench chunk, bench.detail's
 policy chunk, the eval chunk, the rollout, each served batch shape): it
@@ -52,10 +53,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from rvo3d_tpu_torch.ops import masked_gru
+from rvo3d_tpu_torch.ops import masked_gru, vo_pairs
 from rvo3d_tpu_torch.utils import profiler
 
 WARMUP = 1   # eager steps on the side stream before the capture
+COUNTED = (masked_gru, vo_pairs)   # kernels whose `launches` replays add to
 
 
 def on_card(device) -> bool:
@@ -115,7 +117,8 @@ def _capture(body: Callable[[], None], stream, pool=None):
 class StepGraph:
     """body() as one step of a loop on a CUDA device: warmed up, captured
     once and replayed (the module's docstring). `kernel_launches` is the
-    masked-GRU launches one replay makes, `replays` the replays so far.
+    launches of each kernel of COUNTED one replay makes, `replays` the
+    replays so far.
     `pool`: a SharedPool to capture into. The capture is recorded as the
     span `capture_span` (name, attributes; utils/profiler.py)."""
 
@@ -130,7 +133,7 @@ class StepGraph:
         self.stream = _side_stream(dev)
         self.graph = None
         self.warmed = 0
-        self.kernel_launches = 0
+        self.kernel_launches = (0,) * len(COUNTED)
         self.replays = 0
         self.capture_span = ("graph.capture", {})
 
@@ -141,16 +144,19 @@ class StepGraph:
             self.warmed += 1
             return
         if self.graph is None:
-            before = masked_gru.launches
+            before = [mod.launches for mod in COUNTED]
             name, attrs = self.capture_span
             with profiler.span(name, **attrs):
                 self.graph = _capture(self.body, self.stream,
                                       None if self.pool is None else self.pool.handle())
-            self.kernel_launches = masked_gru.launches - before
-            masked_gru.launches = before     # captured, not run
+            self.kernel_launches = tuple(mod.launches - b
+                                         for mod, b in zip(COUNTED, before))
+            for mod, b in zip(COUNTED, before):
+                mod.launches = b             # captured, not run
         self.graph.replay()
         self.replays += 1
-        masked_gru.launches += self.kernel_launches
+        for mod, n in zip(COUNTED, self.kernel_launches):
+            mod.launches += n
 
 
 def clone_tree(tree: Any) -> Any:

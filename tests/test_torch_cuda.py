@@ -29,7 +29,15 @@ eval and rollout steps rise within and across steps and lie between eager
 stamps taken just before and after each step, the eval masks kept from
 the graphed chunk equal those its eager body ran, and MAX_GRAPHS + 1
 shapes served in turn give one `serve.evict`, one `serve.capture` and a
-device time on each `serve.replay`.
+device time on each `serve.replay`; and the env step's all-pairs VO kernel
+(ops/vo_pairs.py) against the plain PyTorch path on the card, both modes,
+float64 and float32: the four in-repo worlds flown by the noisy waypoint
+controller (neighbours listed), dense clusters where every row flags more
+than nm candidates with exact ties in both sort keys (M = 16, 32, 64), a
+world with sphere obstacles (M > N), a two-world lane world, float32
+actions beside float64 states, and the calls captured in a CUDA graph and
+replayed; the env on the card never reaching the plain pair path; the
+graphed eval and rollout steps launching it three times a step.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
@@ -40,14 +48,17 @@ gradient of each tensor, or, for the ActorCritic losses, no more than
 twice the card's plain path's distance from the CPU (see that test)."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
+import vo_cases
 from rvo3d_tpu_torch.config import EnvParams, ModelConfig
 from rvo3d_tpu_torch.models import ActorCritic
 from rvo3d_tpu_torch.ops import masked_gru as mg
+from rvo3d_tpu_torch.ops import vo_pairs
 
 pytestmark = pytest.mark.gpu
 
@@ -387,9 +398,11 @@ def test_graphed_eval_chunk_equals_eager(cuda):
     g1 = torch.Generator(device=cuda).manual_seed(1)
     g2 = torch.Generator(device=cuda).manual_seed(1)
     chunk = make_eval_chunk(ac, world, p, chunk=16, **kw)
-    before = mg.launches
+    before, vo_before = mg.launches, vo_pairs.launches
     got = chunk(c0, g1)
     assert mg.launches - before == 16          # one biGRU launch a step, replays included
+    # the VO kernel: the reward's pass, the step's observation, the reset's
+    assert vo_pairs.launches - vo_before == 3 * 16
     _equal_trees(got, eval_chunk(ac, world, p, c0, g2, 16, **kw), "chunk")
     assert got[1].ended.any()
 
@@ -411,9 +424,11 @@ def test_graphed_rollout_equals_eager(cuda, mode):
         roll = make_rollout(ac, world, p, cfg) if graphed else (
             lambda c: rollout_epoch(ac, world, p, cfg, c))
         batches = []
+        vo_before = vo_pairs.launches
         for _ in range(2):
             carry, batch = roll(carry)
             batches.append(tuple(x.clone() for x in batch))
+        assert vo_pairs.launches - vo_before == 3 * 2 * 12   # replays included
         runs.append((carry, batches))
     (c1, b1), (c2, b2) = runs
     _equal_trees(c1._replace(generator=None), c2._replace(generator=None), "carry")
@@ -720,3 +735,190 @@ def test_past_max_graphs_one_shape_is_evicted_and_one_captured(cuda):
     replays = [s for s in spans if s.name == "serve.replay"]
     assert len(replays) == 2 and all(s.attrs["device_ms"] > 0 for s in replays)
     assert len(srv._graphs) == serving.MAX_GRAPHS
+
+
+# ---- the env step's all-pairs VO kernel (ops/vo_pairs.py) against the
+# plain PyTorch path on the card, on inputs where neighbours are listed.
+# The kernel repeats the plain path's IEEE-rounded operations in their
+# order, so the two should agree bit for bit. The tolerances leave room for
+# the CUDA math library's asin and acos of the toolkit that built the
+# kernel against those of the one that built PyTorch's kernels: 1e-12 in
+# float64 (each within an ulp, ~1e-16, of a value below 10^3) and 2 ulp of
+# the larger value in float32 (an ulp each side). Flags, masks, the
+# non-finite pattern and the selected slots must be equal. ----
+
+def _vo_close(got, want, dtype, what):
+    for name, g, w in zip(got._fields, got, want):
+        msg = f"{what}: {name}"
+        assert g.shape == w.shape and g.dtype == w.dtype, msg
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w), msg
+            continue
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(g), test(w)), msg
+        fin = torch.isfinite(w)
+        g, w = g[fin], w[fin]
+        if not g.numel():
+            continue
+        if dtype == torch.float64:
+            err = float((g - w).abs().max())
+            assert err <= 1e-12, (msg, err)
+        else:
+            big = torch.maximum(g.abs(), w.abs())
+            ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+            assert bool(((g - w).abs() <= 2 * ulp).all()), (msg, float((g - w).abs().max()))
+
+
+def _vo_check(states, actions, bld, bmask, p, others=None, what=""):
+    """Both modes by the kernel against the plain path, all on the card;
+    returns the observation's listed slots."""
+    from rvo3d_tpu_torch.env import rvo
+
+    before = vo_pairs.launches
+    got_r = rvo.vo_reward_info(states, actions, p, others)
+    got_o = rvo.vo_observe(states, actions, bld, bmask, p, others)
+    assert vo_pairs.launches - before == 2
+    _vo_close(got_r, rvo.vo_reward_info_plain(states, actions, p, others),
+              states.dtype, f"{what} reward")
+    _vo_close(got_o, rvo.vo_observe_plain(states, actions, bld, bmask, p, others),
+              states.dtype, f"{what} observe")
+    return int(got_o.obs_mask.sum())
+
+
+def _on(device, *xs):
+    return [None if x is None else x.to(device) for x in xs]
+
+
+def _world(name, device, dtype):
+    from rvo3d_tpu_torch.bench import core
+    from rvo3d_tpu_torch.bench.flagship import flagship_world
+    from rvo3d_tpu_torch.worlds import load_world
+
+    if name == "flagship":
+        wd = flagship_world()
+        return core.world_spec(wd, device, dtype), wd["drone_num"]
+    wd = load_world(name)
+    return wd.spec(dtype=dtype, device=device), wd.drone_num
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["gen_demo", "world16_dense", "world32_mix", "flagship"])
+def test_vo_kernel_matches_plain_on_flown_worlds(cuda, name, dtype):
+    from rvo3d_tpu_torch.env.env import DroneEnv
+
+    world, n = _world(name, "cpu", dtype)
+    card, _ = _world(name, cuda, dtype)
+    p = EnvParams(num_drones=n)
+    listed = 0
+    for t, (s12, act, others) in enumerate(
+            vo_cases.flown_inputs(DroneEnv(world, p, num_envs=256, dtype=dtype), world, p)):
+        listed += _vo_check(*_on(cuda, s12, act), card.buildings, card.building_mask, p,
+                            _on(cuda, others)[0], what=f"{name} step {2 * t}")
+    assert listed > 0
+
+
+@pytest.mark.parametrize("dtype,act_dtype", [(torch.float64, None), (torch.float32, None),
+                                             (torch.float64, torch.float32)])
+@pytest.mark.parametrize("dims,env_train", vo_cases.CLUSTERS)
+def test_vo_kernel_matches_plain_on_dense_clusters(cuda, dims, env_train, dtype, act_dtype):
+    states, actions, bld, bmask = vo_cases.dense_cluster(dims, dtype, act_dtype=act_dtype)
+    p = EnvParams(num_drones=states.shape[-2], env_train=env_train)
+    listed = _vo_check(*_on(cuda, states, actions, bld, bmask), p, what=str(dims))
+    assert listed == states.shape[0] * states.shape[1] * p.neighbor_num
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("parity", [True, False])
+def test_vo_kernel_matches_plain_with_spheres(cuda, dtype, parity):
+    from rvo3d_tpu_torch.env.env import DroneEnv
+    from rvo3d_tpu_torch.env.state import make_world_spec
+
+    world, card = (make_world_spec(vo_cases.SPHERE_WAYPOINTS, vo_cases.SPHERE_BUILDINGS,
+                                   vo_cases.SPHERE_MAP, spheres=vo_cases.SPHERES,
+                                   dtype=dtype, device=d) for d in ("cpu", cuda))
+    p = EnvParams(num_drones=12, parity_rounding=parity)
+    listed = 0
+    for s12, act, others in vo_cases.flown_inputs(DroneEnv(world, p, num_envs=64, dtype=dtype),
+                                                  world, p):
+        assert others.shape[-2] == 15
+        listed += _vo_check(*_on(cuda, s12, act), card.buildings, card.building_mask, p,
+                            others.to(cuda), what="spheres")
+    assert listed > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vo_kernel_matches_plain_on_a_lane_world(cuda, dtype):
+    from rvo3d_tpu_torch.worlds import load_world
+    from rvo3d_tpu_torch.worlds.multi import MultiWorldEnv, reverse_routes
+
+    wd = load_world("world16_dense")
+    p = EnvParams(num_drones=wd.drone_num)
+
+    def specs(device):
+        a = wd.spec(dtype=dtype, device=device)
+        b = reverse_routes(a)     # another building set, one fewer (padded, masked)
+        moved = b.buildings[:-1] + torch.tensor([1.0, -1.0, 0.0, 0.0], dtype=dtype,
+                                                device=device)
+        return [a, b._replace(buildings=moved, building_mask=b.building_mask[:-1])]
+    env = MultiWorldEnv(specs("cpu"), torch.arange(64) % 2, p)
+    card = MultiWorldEnv(specs(cuda), torch.arange(64) % 2, p).lane_worlds
+    assert card.buildings.dim() == 3 and not torch.equal(card.buildings[0], card.buildings[1])
+    listed = 0
+    for s12, act, _ in vo_cases.flown_inputs(env, env.lane_worlds, p, lane_world=True):
+        listed += _vo_check(*_on(cuda, s12, act), card.buildings, card.building_mask, p,
+                            what="lane world")
+    assert listed > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_vo_kernel_captured_in_a_graph_and_replayed(cuda, dtype):
+    from rvo3d_tpu_torch.env import rvo
+    from rvo3d_tpu_torch.env.env import DroneEnv
+    from rvo3d_tpu_torch.utils.graphs import COUNTED, StepGraph
+
+    world, n = _world("world32_mix", "cpu", dtype)
+    card, _ = _world("world32_mix", cuda, dtype)
+    p = EnvParams(num_drones=n)
+    kept = vo_cases.flown_inputs(DroneEnv(world, p, num_envs=64, dtype=dtype), world, p)
+    states, actions = _on(cuda, *kept[0][:2])
+    out = {}
+
+    def body():
+        out["reward"] = rvo.vo_reward_info(states, actions, p)
+        out["observe"] = rvo.vo_observe(states, actions, card.buildings,
+                                        card.building_mask, p)
+    graph = StepGraph(body, cuda)
+    listed = 0
+    for t, (s12, act, _) in enumerate(kept):
+        states.copy_(s12)
+        actions.copy_(act)
+        before = vo_pairs.launches
+        graph.step()      # the eager warm-up, then the capture's replay, then replays
+        assert vo_pairs.launches - before == 2, t
+        _vo_close(out["reward"], rvo.vo_reward_info_plain(states, actions, p), dtype,
+                  f"replay {t} reward")
+        want = rvo.vo_observe_plain(states, actions, card.buildings, card.building_mask, p)
+        _vo_close(out["observe"], want, dtype, f"replay {t} observe")
+        listed += int(want.obs_mask.sum())
+    assert graph.replays == len(kept) - 1 and listed > 0
+    assert graph.kernel_launches[COUNTED.index(vo_pairs)] == 2
+
+
+def test_env_on_the_card_never_takes_the_plain_pair_path(cuda, monkeypatch):
+    from rvo3d_tpu_torch.env import rvo
+    from rvo3d_tpu_torch.env.env import DroneEnv
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("CUDA tensors reached the plain pair path")
+    monkeypatch.setattr(rvo, "pairwise_vo", refuse)
+    world, n = _world("world16_dense", cuda, torch.float32)
+    env = DroneEnv(world, EnvParams(num_drones=n), num_envs=4)
+    before = vo_pairs.launches
+    state, _ = env.reset()                               # an observation
+    state, out = env.step(state, torch.zeros_like(state.vel))   # the reward's, the step's
+    env.observe(state)
+    torch.cuda.synchronize()
+    assert vo_pairs.launches - before == 4
+    with pytest.raises(AssertionError, match="plain pair path"):
+        rvo.vo_observe_plain(state.pos.new_zeros(4, n, 12), state.vel,
+                             world.buildings, world.building_mask, env.params)

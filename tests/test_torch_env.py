@@ -8,7 +8,10 @@
   - float32 torch step against the JAX step on the same state and action,
     at 1e-5, for 20 steps of each world (see the test for the one rounding
     tie that f32 divisions may break either way).
-  - the two-pass stable sort against jnp.lexsort on rows with ties.
+  - the two-pass stable sort against jnp.lexsort on rows with ties, and
+    vo_observe's top-nm selection against a Python sort of each row on
+    dense clusters where every row flags more than nm candidates, with
+    exact ties in both keys (the semantics the card's kernel reproduces).
 """
 
 import numpy as np
@@ -26,9 +29,10 @@ from rvo3d_tpu.env.state import make_world_spec as j_make_world_spec
 from rvo3d_tpu.parity import _boundary_margin
 from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.env import env as tenv
-from rvo3d_tpu_torch.env.rvo import lexsort_rows
+from rvo3d_tpu_torch.env.rvo import lexsort_rows, pairwise_vo, vo_observe
 from rvo3d_tpu_torch.env.state import DroneState
 from rvo3d_tpu_torch.worlds import WorldData, load_world
+from vo_cases import CLUSTERS, dense_cluster, select_brute
 
 WORLDS = ["gen_demo", "world16_dense", "world32_mix", "flagship"]
 
@@ -223,6 +227,35 @@ def test_lexsort_with_ties_matches_jnp():
     got = lexsort_rows(torch.from_numpy(sort_t), torch.from_numpy(sort_d)).numpy()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, np.lexsort((-sort_d, sort_t), axis=-1))
+
+
+def test_lexsort_sees_negative_zero_equal_to_zero():
+    """-0.0 and +0.0 in sort_d tie, so the index decides, as in a Python sort."""
+    sort_t = torch.tensor([[0.5, 0.5, 0.5, 0.5, -np.inf, 0.5]])
+    sort_d = torch.tensor([[0.0, -0.0, 1.0, -0.0, 0.0, 0.0]])
+    want = sorted(range(6), key=lambda j: (sort_t[0, j].item(), -sort_d[0, j].item(), j))
+    assert want == [4, 2, 0, 1, 3, 5]
+    assert lexsort_rows(sort_t, sort_d)[0].tolist() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims,env_train", CLUSTERS)
+def test_vo_observe_selection_matches_brute_force(dims, env_train, dtype):
+    states, actions, bld, bmask = dense_cluster(dims, dtype)
+    p = EnvParams(num_drones=states.shape[-2], env_train=env_train)
+    pw = pairwise_vo(states, actions, p)
+    flagged = pw.vo_flag & pw.valid
+    assert int(flagged.sum(-1).min()) > p.neighbor_num
+    # rows whose flagged candidates tie exactly in sort_t
+    ties = sum(len(set(t[f].tolist())) < int(f.sum())
+               for t, f in zip(pw.sort_t.flatten(0, -2), flagged.flatten(0, -2)))
+    assert ties > 0
+    want_nbr, want_mask = select_brute(pw.sort_t, pw.sort_d, flagged, pw.obs9,
+                                       p.neighbor_num)
+    got = vo_observe(states, actions, bld, bmask, p)
+    np.testing.assert_array_equal(got.obs_mask.numpy(), want_mask)
+    np.testing.assert_array_equal(got.obs_nbr.numpy(), want_nbr)
+    assert bool(got.obs_mask.all())
 
 
 def test_rounding_and_yaw_modulo_match_jax():

@@ -63,6 +63,7 @@ from rvo3d_tpu_torch.config import EnvParams, ModelConfig, TrainConfig
 from rvo3d_tpu_torch.env.env import reset
 from rvo3d_tpu_torch.models import ActorCritic
 from rvo3d_tpu_torch.ops import masked_gru as mg
+from rvo3d_tpu_torch.ops import vo_pairs
 from rvo3d_tpu_torch import serving
 from rvo3d_tpu_torch.serving import PolicyServer
 from rvo3d_tpu_torch.utils import graphs
@@ -127,23 +128,26 @@ def test_launches_count_the_capture_launches_times_the_replays(monkeypatch):
         def replay(self):        # a replay runs no Python launch
             Graph.replays += 1
 
-    def body():                  # a body that launches the kernel twice
+    def body():                  # launches the GRU kernel twice, the VO kernel 3 times
         mg.launches += 2
+        vo_pairs.launches += 3
 
     def capture(fn, stream, pool=None):
         fn()
         return Graph()
     monkeypatch.setattr(mg, "launches", 0)
+    monkeypatch.setattr(vo_pairs, "launches", 0)
     monkeypatch.setattr(graphs, "_side_stream", lambda dev: None)
     monkeypatch.setattr(graphs, "_on_stream", lambda stream, fn: fn())
     monkeypatch.setattr(graphs, "_capture", capture)
     g = graphs.StepGraph(body, "cuda")
     g.step()                                         # the eager warm-up
-    assert (mg.launches, g.graph) == (2, None)
+    assert (mg.launches, vo_pairs.launches, g.graph) == (2, 3, None)
     for _ in range(5):                               # capture + 5 replays
         g.step()
-    assert (g.kernel_launches, g.replays, Graph.replays) == (2, 5, 5)
-    assert mg.launches == 2 + 5 * 2
+    assert graphs.COUNTED == (mg, vo_pairs)
+    assert (g.kernel_launches, g.replays, Graph.replays) == ((2, 3), 5, 5)
+    assert (mg.launches, vo_pairs.launches) == (2 + 5 * 2, 3 + 5 * 3)
 
 
 def test_graphed_loop_records_at_the_step_index_and_goes_on(eager_graphs):
