@@ -1,0 +1,24 @@
+"""env_ms_per_step.flag: the mean over the profiled bench call's graphed
+steps of end - mark, ms, from the device stamps the bench step writes
+(kept by the port's recorder as `bench.stamps`, [steps, 3] ns: step start,
+controller end, step end): the env step and the reset of collided or
+finished drones."""
+
+
+def recording():
+    """The recorder of the profiled window (rvo3d_tpu_torch/utils/profiler.py),
+    or None where the port has none."""
+    try:
+        from rvo3d_tpu_torch.utils.profiler import recorded
+    except ImportError:
+        return None
+    return recorded()
+
+
+def read(run):
+    rec = recording()
+    calls = rec.kept.get("bench.stamps") if rec is not None else None
+    if not calls or "traced_env_steps" not in run.window:
+        return None
+    steps = sum(len(s) for s in calls)
+    return sum(float((s[:, 2] - s[:, 1]).sum()) for s in calls) * 1e-6 / steps

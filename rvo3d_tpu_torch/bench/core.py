@@ -23,7 +23,7 @@ import argparse
 import json
 import os
 import time
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ from rvo3d_tpu_torch.utils import graphs
 from rvo3d_tpu_torch.utils.device import resolve_device
 from rvo3d_tpu_torch.utils.heuristic import waypoint_controller
 
+STAMPS = 1024    # device stamps a graphed chunk call keeps, of its first steps
 OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "runs_torch", "bench")
 
@@ -78,13 +79,18 @@ def world_spec(world_dict: dict, device, dtype=torch.float32) -> WorldSpec:
 
 
 @torch.no_grad()
-def bench_step(world: WorldSpec, state: DroneState, p: EnvParams) -> DroneState:
+def bench_step(world: WorldSpec, state: DroneState, p: EnvParams,
+               mark: Optional[Callable[[], None]] = None) -> DroneState:
     """One step of every lane: the analytic controller (bench.py:44-59,
     equal to waypoint_controller at cruise 0.8 and dt 1), `step` with its
     output as the absolute action unchanged (bench.py:62), then the
     trainer's lifecycle, a reset of collided or finished drones. `world`
-    is one world or a lane world (worlds/multi.py)."""
+    is one world or a lane world (worlds/multi.py). `mark`, when given, is
+    called between the controller and the env step (the graphed chunk's
+    device stamp)."""
     act = waypoint_controller(state, world)
+    if mark is not None:
+        mark()
     state, out = step(world, state, act, p)
     return reset_where(world, state, out.done | out.finish)
 
@@ -102,10 +108,13 @@ def make_chunk(world: WorldSpec, p: EnvParams):
     """chunk(state, steps) -> state, the loop the benchmarks time: on a card
     bench_step captured once as a CUDA graph and replayed `steps` times a
     call (utils/graphs.GraphedLoop; the static state's shape is fixed by
-    the first call), run_chunk on the CPU."""
+    the first call), run_chunk on the CPU. The graphed step writes device
+    stamps (step start, controller end, step end) for a call's first
+    STAMPS steps, kept as `bench.stamps` while the recorder is on."""
     if graphs.on_card(world.device):
-        loop = graphs.GraphedLoop(lambda s, x, t: (bench_step(world, s, p), None),
-                                  world.device, name="bench")
+        loop = graphs.GraphedLoop(
+            lambda s, x, t: (bench_step(world, s, p, loop.mark), None),
+            world.device, name="bench", stamps=STAMPS)
         return lambda state, steps: loop(state, steps)[0]
     return lambda state, steps: run_chunk(world, state, p, steps)
 

@@ -17,6 +17,13 @@ actions [..., N, 3] are of the states' type, or float32 beside float64
 states (the action's own arithmetic then stays in float32, as PyTorch's
 type promotion keeps it). Buildings are [B, 4] with a mask [B], or a lane
 world's [E, B, 4] with [E, B], where E is the last leading axis.
+
+While the recorder is on (utils/profiler.py), each launch adds its shape
+to the counters `vo_pairs.<mode>.<key>`, mode `reward` or `observe`, keys
+`launches`, `rows`, `pairs` (rows x M), `slots` (rows x nm written,
+observe), `others` (values of `others` read) and `buildings` (building
+rows read, observe); a CUDA graph's replays add the shapes its capture
+took (utils/profiler.capturing). Off, nothing is counted.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.ops import _build
+from rvo3d_tpu_torch.utils import profiler
 
 # Launches of the CUDA kernel since the last reset (counted through graph
 # replays by utils/graphs.py, as masked_gru's are).
@@ -151,6 +159,20 @@ def _lanes_of(t, dim: int, lead, name: str) -> int:
                      f"lanes {tuple(lead)}")
 
 
+def _note(q: _Params, observe: bool) -> None:
+    """One launch's shape added to the recorder's counters."""
+    if not profiler.counting():
+        return
+    # o_row 12: no `others`, the rows' own states are the candidates
+    others = 0 if q.o_row == 12 else q.o_lane * (q.rows // q.N)
+    mode = "observe" if observe else "reward"
+    shape = {"launches": 1, "rows": q.rows, "pairs": q.rows * q.M,
+             "slots": q.rows * q.nm if observe else 0, "others": others,
+             "buildings": q.b_lanes * q.B if observe else 0}
+    for key, n in shape.items():
+        profiler.count(f"vo_pairs.{mode}.{key}", n)
+
+
 def _launch(q: _Params, observe: bool, dtype: torch.dtype, act_dtype: torch.dtype,
             device) -> None:
     global launches
@@ -164,6 +186,7 @@ def _launch(q: _Params, observe: bool, dtype: torch.dtype, act_dtype: torch.dtyp
     if err != 0:
         raise RuntimeError(f"vo_pairs_launch failed: cudaError {err}")
     launches += 1
+    _note(q, observe)
 
 
 def reward_info(states, actions, p: EnvParams, others: Optional[torch.Tensor] = None):

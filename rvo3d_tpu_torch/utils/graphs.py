@@ -19,7 +19,9 @@ A replay launches the captured kernels without Python, so the
 hand-written kernels' `launches` (ops/masked_gru.py, ops/vo_pairs.py), which
 count their Python launches, would miss them: the capture's launches are
 taken back off each count, and each replay adds them again. The counts stay
-the number of kernels the card ran.
+the number of kernels the card ran. Likewise the recorder's counters that
+the body adds while it is captured are kept (profiler.capturing) and added
+again by each replay made while the recorder is on.
 
 GraphedLoop is the loop every user runs (the bench chunk, bench.detail's
 policy chunk, the eval chunk, the rollout, each served batch shape): it
@@ -134,6 +136,7 @@ class StepGraph:
         self.graph = None
         self.warmed = 0
         self.kernel_launches = (0,) * len(COUNTED)
+        self.counts: list = []           # the recorder's counters a replay adds
         self.replays = 0
         self.capture_span = ("graph.capture", {})
 
@@ -146,7 +149,7 @@ class StepGraph:
         if self.graph is None:
             before = [mod.launches for mod in COUNTED]
             name, attrs = self.capture_span
-            with profiler.span(name, **attrs):
+            with profiler.span(name, **attrs), profiler.capturing() as self.counts:
                 self.graph = _capture(self.body, self.stream,
                                       None if self.pool is None else self.pool.handle())
             self.kernel_launches = tuple(mod.launches - b
@@ -157,6 +160,7 @@ class StepGraph:
         self.replays += 1
         for mod, n in zip(COUNTED, self.kernel_launches):
             mod.launches += n
+        profiler.replay(self.counts)
 
 
 def clone_tree(tree: Any) -> Any:
@@ -227,9 +231,10 @@ class GraphedLoop:
     `capture_attrs`). `stamps=T` gives the loop a [T, 3] int64 buffer of
     device timestamps (ns) that the step writes at its index t: column 0
     at the step's start, 1 where the step calls `mark()` (the end of the
-    policy's work), 2 at its end; while the recorder is on, each call
-    keeps a device clone of its steps' rows as `<name>.stamps`. The stamps
-    are captured into the graph always and change no output. `timed`:
+    policy's or the controller's work), 2 at its end; while the recorder
+    is on, each call keeps a device clone of its steps' rows as
+    `<name>.stamps`. The stamps are captured into the graph always and
+    change no output. `timed`:
     while the recorder is on, each replay is bracketed by two CUDA events
     (the replay span's `device_ms`), and the host waits on the second
     before the copy out.
@@ -253,7 +258,8 @@ class GraphedLoop:
         self.timed = timed and on_cuda
 
     def mark(self) -> None:
-        """Stamp the end of the policy's work in the current step."""
+        """Stamp the end of the policy's (or controller's) work in the
+        current step."""
         profiler.stamp(self.stamps, self.t, 1)
 
     def _body(self) -> None:

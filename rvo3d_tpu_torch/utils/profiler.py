@@ -7,6 +7,11 @@ layers' metrics to read.
   span(name, **attrs)  a context manager around a block of host work; its
                        `__enter__` returns a handle (None when off)
   count(name, n=1)     adds n to a counter
+  capturing()          while a CUDA graph captures (utils/graphs.StepGraph):
+                       `count` appends (name, n) to the list it yields, since
+                       the captured work does not run then, and each replay
+                       hands the list to `replay(counts)`, which adds them
+                       while the recorder is on
   keep(name, x)        keeps a clone of tensor x, on x's device, made on
                        the current stream with no sync (the graphed loops'
                        device stamps, the evaluator's masks)
@@ -138,9 +143,35 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
+_CAPTURED: Optional[List[tuple]] = None      # a capture's counters
+
+
 def count(name: str, n: float = 1) -> None:
-    if on():
+    if _CAPTURED is not None:
+        _CAPTURED.append((name, n))
+    elif on():
         _REC.counters[name] = _REC.counters.get(name, 0) + n
+
+
+def counting() -> bool:
+    """Whether `count` keeps anything: the recorder is on, or a graph captures."""
+    return _CAPTURED is not None or on()
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[List[tuple]]:
+    global _CAPTURED
+    prev, _CAPTURED = _CAPTURED, []
+    try:
+        yield _CAPTURED
+    finally:
+        _CAPTURED = prev
+
+
+def replay(counts: List[tuple]) -> None:
+    if counts and on():
+        for name, n in counts:
+            _REC.counters[name] = _REC.counters.get(name, 0) + n
 
 
 def keep(name: str, x: torch.Tensor) -> None:

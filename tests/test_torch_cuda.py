@@ -37,7 +37,10 @@ than nm candidates with exact ties in both sort keys (M = 16, 32, 64), a
 world with sphere obstacles (M > N), a two-world lane world, float32
 actions beside float64 states, and the calls captured in a CUDA graph and
 replayed; the env on the card never reaching the plain pair path; the
-graphed eval and rollout steps launching it three times a step.
+graphed eval and rollout steps launching it three times a step; and the
+bench loop's records: the VO kernel's launch counters, empty with the
+recorder off and counting each replay's launches with it on, and the
+graphed bench step's device stamps written and in order.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it runs on a machine without it:
@@ -922,3 +925,55 @@ def test_env_on_the_card_never_takes_the_plain_pair_path(cuda, monkeypatch):
     with pytest.raises(AssertionError, match="plain pair path"):
         rvo.vo_observe_plain(state.pos.new_zeros(4, n, 12), state.vel,
                              world.buildings, world.building_mask, env.params)
+
+
+# ---- the bench loop's records (the `sim` cell's): the VO kernel's launch
+# counters through graph replays and the graphed bench step's stamps ----
+
+def _flagship_chunk(cuda, lanes=256):
+    from rvo3d_tpu_torch.bench import core
+    from rvo3d_tpu_torch.bench.flagship import flagship_world
+    from rvo3d_tpu_torch.env.env import reset
+
+    world = core.world_spec(flagship_world(), cuda)
+    p = EnvParams(num_drones=8)
+    chunk = core.make_chunk(world, p)
+    return chunk, chunk(reset(world, p, lead=(lanes,)), 3)   # warm-up, capture, replay
+
+
+def test_vo_counters_count_graph_replays(cuda):
+    from rvo3d_tpu_torch.utils import profiler
+
+    chunk, state = _flagship_chunk(cuda)
+    profiler.clear()
+    state = chunk(state, 5)                       # recorder off: nothing counted
+    assert profiler.recorded().counters == {}
+    before = vo_pairs.launches
+    with _profiled():
+        chunk(state, 10)                          # 10 replays, 2 launches each
+    c = profiler.recorded().counters
+    profiler.clear()
+    assert vo_pairs.launches - before == 20
+    for mode in ("reward", "observe"):
+        assert c[f"vo_pairs.{mode}.launches"] == 10
+        assert c[f"vo_pairs.{mode}.rows"] == 10 * 256 * 8
+        assert c[f"vo_pairs.{mode}.pairs"] == 10 * 256 * 8 * 8
+    assert c["vo_pairs.observe.slots"] == 10 * 256 * 8 * 10
+    assert c["vo_pairs.observe.buildings"] == 10
+
+
+def test_bench_stamps_are_written_in_order(cuda):
+    from rvo3d_tpu_torch.utils import profiler
+
+    chunk, state = _flagship_chunk(cuda)
+    profiler.clear()
+    with _profiled():
+        chunk(state, 12)
+    (got,) = profiler.recorded().kept["bench.stamps"]
+    profiler.clear()
+    got = got.tolist()
+    assert len(got) == 12
+    for t, (start, mark, end) in enumerate(got):
+        assert 0 < start < mark < end, (t, got[t])
+        if t:
+            assert got[t - 1][2] <= start

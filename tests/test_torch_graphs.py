@@ -26,7 +26,9 @@ epoch-end flag read from that index) then runs on the CPU, and:
   - StepGraph refuses a CPU device, a capture runs with the cyclic
     garbage collector off (it runs just before), and StepGraph's launch count (with stubs in
     place of the stream, the capture and the graph) is the warm-up's
-    launches plus the capture's launches times the replays; GraphedLoop
+    launches plus the capture's launches times the replays, and the
+    recorder's counters the body adds while captured are added once a
+    replay while the recorder is on and not at all while it is off; GraphedLoop
     writes records at the device step index and goes on from its carry.
 The graphs themselves are held to the eager loops on the card by the
 `gpu` cases of tests/test_torch_cuda.py and chip_smoke.py's `graphs` phase.
@@ -66,7 +68,7 @@ from rvo3d_tpu_torch.ops import masked_gru as mg
 from rvo3d_tpu_torch.ops import vo_pairs
 from rvo3d_tpu_torch import serving
 from rvo3d_tpu_torch.serving import PolicyServer
-from rvo3d_tpu_torch.utils import graphs
+from rvo3d_tpu_torch.utils import graphs, profiler
 from rvo3d_tpu_torch.worlds import load_world
 from test_torch_rollout import policies, specs
 from test_torch_serving import rand_obs, servers  # noqa: F401  (a fixture)
@@ -148,6 +150,32 @@ def test_launches_count_the_capture_launches_times_the_replays(monkeypatch):
     assert graphs.COUNTED == (mg, vo_pairs)
     assert (g.kernel_launches, g.replays, Graph.replays) == ((2, 3), 5, 5)
     assert (mg.launches, vo_pairs.launches) == (2 + 5 * 2, 3 + 5 * 3)
+
+
+def test_counters_made_in_the_capture_are_added_by_each_replay(monkeypatch):
+    def body():
+        profiler.count("body.steps")
+        profiler.count("body.rows", 64)
+
+    def capture(fn, stream, pool=None):
+        fn()
+        return type("Graph", (), {"replay": lambda self: None})()
+    monkeypatch.setattr(graphs, "_side_stream", lambda dev: None)
+    monkeypatch.setattr(graphs, "_on_stream", lambda stream, fn: fn())
+    monkeypatch.setattr(graphs, "_capture", capture)
+    profiler.clear()
+    g = graphs.StepGraph(body, "cuda")
+    for _ in range(3):                   # warm-up, capture + replay, replay: off
+        g.step()
+    assert profiler.recorded().counters == {}
+    assert g.counts == [("body.steps", 1), ("body.rows", 64)]
+    assert not profiler.counting()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(4):               # 4 replays: on
+            g.step()
+    got = profiler.recorded().counters
+    profiler.clear()
+    assert got == {"body.steps": 4, "body.rows": 4 * 64}
 
 
 def test_graphed_loop_records_at_the_step_index_and_goes_on(eager_graphs):
