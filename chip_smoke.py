@@ -163,6 +163,15 @@ pattern must be equal and values within 2 ulp (`vo_within`, the card
 tests' limit). It times both beside the kernel's bound (`vo_bound`).
 The `kernels` line has a row for it, whose launches count the env phases
 and each training epoch's rollout (`train_rollout`).
+The env step's per-drone arithmetic runs on the card as the hand-written
+passes of rvo3d_tpu_torch/ops/env_drones.py (csrc/env_drones.cu) around
+those launches: `build` builds them too, the env phases' lines give their
+launches (`env_drones_launches`), and `env_drones_kernel` (after
+`vo_pairs_kernel`) holds step, observe and reset_where to the plain path
+on the card with `vo_within` at the same three shapes over 10 steps of the
+noisy waypoint controller, times each pass from a CUDA graph beside its
+byte bound (`env_drones_bound`) and each call beside the plain path's; the
+`kernels` line has its row.
 Each phase prints one JSON line with its wall-clock seconds, and a `total`
 line the script's; a failed phase exits non-zero. The last line is
 {"ok": true, "device": {...}}.
@@ -382,6 +391,48 @@ def vo_bound(states, actions, others=None, nm=0, buildings=None, building_mask=N
     t_ops, t_bytes = flops / F32_PEAK, (read + written) / HBM_BYTES_S
     return {"flops": flops, "bytes": read + written, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def env_drones_bound(rows, item, act_item, nm, slots, parity=True):
+    """The least time of each env pass (ops/env_drones.py) at `rows` rows
+    of states of `item` bytes and actions of `act_item`: each input byte
+    read once and each output byte written once at 3.35 TB/s, the world's
+    leaves (a few KB, read by every lane) left out, no noise or progress
+    term. `slots`: the obs_nbr slots the VO pass listed, whose values post
+    reads and writes. Returns {pass: {"bytes", "bound_ms"}}."""
+    t, a = item, act_item
+    state = 11 * t + 4 + 3                   # pos, vel, yaw .. max_dev; wp; flags
+    rounded = 12 * t if parity else 0        # obs_self
+    nbr = 2 * slots * 9 * t if parity else 0
+    per_row = {
+        "pre": 6 * t + 4 + 12 * t,
+        "mid": state + 3 * a + 4 * t + 1 + t + (state - 1) + 12 * t + rounded + 2 * t,
+        "post": 3 * t + 1 + 2 * t + nm + t + 1,
+        "obs": 6 * t + 4 + t + 12 * t + rounded + t + 3 * t,
+        "post_obs": nm + t + 1,
+        "reset": 1 + 2 * (state + 3 * t),
+    }
+    out = {}
+    for name, b in per_row.items():
+        total = rows * b + (nbr if name in ("post", "post_obs") else 0)
+        out[name] = {"bytes": total, "bound_ms": total / HBM_BYTES_S * 1e3}
+    return out
+
+
+def graphed_ms(fn, iters=50):
+    """ms of one call of fn replayed from a CUDA graph (so the host's
+    launch time is left out), after an eager warm-up on a side stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 def vo_within(got, want, what):
@@ -786,6 +837,7 @@ def main(argv=None) -> int:
     from rvo3d_tpu_torch.models import ActorCritic
     from rvo3d_tpu_torch.models import encoder as encoder_mod
     from rvo3d_tpu_torch.ops import _build
+    from rvo3d_tpu_torch.ops import env_drones as ed
     from rvo3d_tpu_torch.ops import masked_gru as mg
     from rvo3d_tpu_torch.ops import vo_pairs as vp
     from rvo3d_tpu_torch.serving import PolicyServer
@@ -803,7 +855,7 @@ def main(argv=None) -> int:
 
     def build():
         out = {}
-        for name, mod in (("masked_gru", mg), ("vo_pairs", vp)):
+        for name, mod in (("masked_gru", mg), ("vo_pairs", vp), ("env_drones", ed)):
             mod.library()
             info = _build.BUILD_INFO[name]
             ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -812,17 +864,21 @@ def main(argv=None) -> int:
         return out
     run_phase("build", build)
 
-    # the VO kernel's launches in each phase that steps the env on the card
-    vo_launches_by_phase = {}
+    # the VO kernel's and the env passes' launches in each phase that steps
+    # the env on the card
+    vo_launches_by_phase, env_launches_by_phase = {}, {}
 
     def counted(name, fn):
         def run():
-            v0 = vp.launches
+            v0, e0 = vp.launches, ed.launches
             out = fn()
             vo_launches_by_phase[name] = vp.launches - v0
-            if vo_launches_by_phase[name] == 0:
-                raise AssertionError(f"{name} never launched the VO pair kernel")
-            return {**out, "vo_launches": vo_launches_by_phase[name]}
+            env_launches_by_phase[name] = ed.launches - e0
+            if vo_launches_by_phase[name] == 0 or env_launches_by_phase[name] == 0:
+                raise AssertionError(f"{name} never launched the VO pair kernel "
+                                     "or the env passes")
+            return {**out, "vo_launches": vo_launches_by_phase[name],
+                    "env_drones_launches": env_launches_by_phase[name]}
         return run
 
     # ---- kernel vs plain at the serving path's shapes ----
@@ -1048,6 +1104,82 @@ def main(argv=None) -> int:
         return {"shapes": vo_rows, "card": smi}
     run_phase("vo_pairs_kernel", vo_pairs_kernel)
 
+    # ---- the env passes against the plain path on the card, and timed ----
+    env_rows = {}
+
+    def env_drones_kernel():
+        from rvo3d_tpu_torch.bench import core as bench_core
+        from rvo3d_tpu_torch.bench.flagship import flagship_world
+        from rvo3d_tpu_torch.env import env as env_mod
+        from rvo3d_tpu_torch.env import rvo
+
+        def flat(tree):
+            return tuple(x for part in tree for x in part)
+
+        shapes = (("eval_1024x32", load_world("world32_mix").spec(device=dev), 1024),
+                  ("rollout_128x16", load_world(WORLD).spec(device=dev), 128),
+                  ("bench_16384x8",
+                   bench_core.world_spec(flagship_world(), dev, torch.float32), 16384))
+        for label, w, lanes in shapes:
+            p_w = EnvParams(num_drones=w.num_drones)
+            state = env_mod.reset(w, p_w, (lanes,))
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            err, listed, resets = 0.0, 0, 0
+            for t in range(10):
+                noise = 0.5 * torch.randn(state.pos.shape, generator=g, device=dev)
+                act = geo.rnd(waypoint_controller(state, w) + noise, 2)
+                want = env_mod.step_plain(w, state, act, p_w)
+                err = max(err, vo_within(flat(env_mod._step_passes(w, state, act, p_w, None)),
+                                         flat(want), f"{label} step {t}"))
+                state, out = want
+                listed += int(out.obs_mask.sum())
+                mask = out.done | out.finish
+                resets += int(mask.sum())
+                want = env_mod.reset_where_plain(w, state, mask)
+                err = max(err, vo_within(env_mod._reset_where_passes(w, state, mask), want,
+                                         f"{label} reset {t}"))
+                state = want
+            err = max(err, vo_within(flat(env_mod._observe_passes(w, state, p_w)),
+                                     flat(env_mod.observe_plain(w, state, p_w)),
+                                     f"{label} observe"))
+            # each pass alone, and the three calls, on the last state
+            act = geo.rnd(waypoint_controller(state, w), 2)
+            s12 = ed.pre(w, state, p_w)
+            info = rvo.vo_reward_info(s12, act, p_w)
+            mid = ed.mid(w, state, s12, act, info.vo_flag, info.min_exp_time, p_w)
+            post_state = state._replace(**mid.fields)
+            vo = rvo.vo_observe(mid.states12, act, w.buildings, w.building_mask, p_w)
+            obs = ed.obs(w, state, p_w)
+            vo0 = rvo.vo_observe(obs[0], obs[3], w.buildings, w.building_mask, p_w)
+            mask = state.arrive_flag | (torch.rand(state.yaw.shape, generator=g,
+                                                   device=dev) < 0.05)
+            passes = {
+                "pre": lambda: ed.pre(w, state, p_w),
+                "mid": lambda: ed.mid(w, state, s12, act, info.vo_flag, info.min_exp_time,
+                                      p_w),
+                "post": lambda: ed.post(w, post_state, vo.collision, mid, vo.obs_nbr,
+                                        vo.obs_mask, p_w),
+                "obs": lambda: ed.obs(w, state, p_w),
+                "post_obs": lambda: ed.post_obs(w, state, vo0.obs_nbr, vo0.obs_mask, p_w),
+                "reset": lambda: ed.reset(w, state, mask)}
+            bound = env_drones_bound(state.yaw.numel(), 4, 4, p_w.neighbor_num,
+                                     int(vo.obs_mask.sum()))
+            row = {"lanes": lanes, "drones": w.num_drones, "max_abs_err": err,
+                   "listed_slots": listed, "resets": resets, "passes": {}}
+            for name, fn in passes.items():
+                row["passes"][name] = {"ms": graphed_ms(fn), **bound[name]}
+            calls = {"step": (lambda: env_mod.step(w, state, act, p_w),
+                              lambda: env_mod.step_plain(w, state, act, p_w)),
+                     "observe": (lambda: env_mod.observe(w, state, p_w),
+                                 lambda: env_mod.observe_plain(w, state, p_w)),
+                     "reset_where": (lambda: env_mod.reset_where(w, state, mask),
+                                     lambda: env_mod.reset_where_plain(w, state, mask))}
+            for name, (fused, plain) in calls.items():
+                row[name] = {"ms": graphed_ms(fused), "plain_ms": graphed_ms(plain)}
+            env_rows[label] = row
+        return {"shapes": env_rows, "card": smi}
+    run_phase("env_drones_kernel", env_drones_kernel)
+
     # ---- the main path: evaluate closed-loop, then serve ----
     world = wd.spec(device=dev)
     p = EnvParams(num_drones=wd.drone_num)
@@ -1197,7 +1329,7 @@ def main(argv=None) -> int:
         def hook(name, data):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            marks.append((ev, mg.launches, vp.launches))
+            marks.append((ev, mg.launches, vp.launches, ed.launches))
             if name == "gae":
                 active = data.obs_mask.sum(-1)
                 keep["rows"], keep["multi"] = active.numel(), (active > 1).sum()
@@ -1215,13 +1347,13 @@ def main(argv=None) -> int:
             torch.cuda.reset_peak_memory_stats()
             m = trainer.run_epoch()
             torch.cuda.synchronize()
-            (e0, l0, v0), (e1, l1, v1), (e2, l2, _), (e3, l3, _) = marks
+            (e0, l0, v0, d0), (e1, l1, v1, d1), (e2, l2, _, _), (e3, l3, _, _) = marks
             line = {"phase": "train_epoch", "epoch": epoch,
                     "epoch_time_s": m["epoch_time_s"], "steps_per_sec": m["steps_per_sec"],
                     "rollout_ms": e0.elapsed_time(e1), "gae_ms": e1.elapsed_time(e2),
                     "update_ms": e2.elapsed_time(e3),
                     "gru_launches_rollout": l1 - l0, "gru_launches_update": l3 - l2,
-                    "vo_launches_rollout": v1 - v0,
+                    "vo_launches_rollout": v1 - v0, "env_drones_launches_rollout": d1 - d0,
                     "pi_iters": m["pi_iters"], "kl": m["kl"], "pi_loss": m["pi_loss"],
                     "v_loss": m["v_loss"], "mean_step_reward": m["mean_step_reward"],
                     "episodes": sum(m["episodes"]),
@@ -1243,6 +1375,9 @@ def main(argv=None) -> int:
                                      "the VO pair kernel")
             vo_launches_by_phase["train_rollout"] = (
                 vo_launches_by_phase.get("train_rollout", 0) + line["vo_launches_rollout"])
+            env_launches_by_phase["train_rollout"] = (
+                env_launches_by_phase.get("train_rollout", 0)
+                + line["env_drones_launches_rollout"])
         launches_by_phase["train"] = mg.launches
         trained.update(trainer=trainer, window=keep["window"])
         # where a rollout step's time goes, at the trainer's carry
@@ -3200,7 +3335,17 @@ def main(argv=None) -> int:
         "max_abs_err": max(r[m]["max_abs_err"] for r in vo_rows.values()
                            for m in ("reward", "observe")),
         "by_shape": {k: {m: {x: r[m][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")}
-                         for m in ("reward", "observe")} for k, r in vo_rows.items()}}]})
+                         for m in ("reward", "observe")} for k, r in vo_rows.items()}}, {
+        "name": "env_drones", "route": "cuda",
+        "source": "rvo3d_tpu_torch/csrc/env_drones.cu",
+        "replaces": None,   # no TPU kernel: the JAX package leaves the env's ops to XLA
+        "launches": sum(env_launches_by_phase.values()),
+        "launches_by_phase": env_launches_by_phase,
+        "max_abs_err": max(r["max_abs_err"] for r in env_rows.values()),
+        "by_shape": {k: {"passes": {m: {x: v[x] for x in ("ms", "bound_ms")}
+                                    for m, v in r["passes"].items()},
+                         **{c: r[c] for c in ("step", "observe", "reset_where")}}
+                     for k, r in env_rows.items()}}]})
     if launches == 0:
         print("chip_smoke: the main path launched no masked GRU kernel", file=sys.stderr)
         return 1

@@ -11,6 +11,13 @@ Lanes and agents are tensor axes; functions take the fleet state with any
 leading shape ([E, N, ...] or [N, ...]) against one WorldSpec, or an
 [E, N, ...] state against a lane world whose leaves lead with the same E
 (worlds/multi.py): lane e then steps its own world.
+
+step, observe and reset_where take the plain PyTorch versions below
+(step_plain, observe_plain, reset_where_plain) for CPU tensors, and for
+CUDA tensors the hand-written per-drone passes of ops/env_drones.py
+(csrc/env_drones.cu) around the VO kernel's launches: 3 passes and 2 VO
+launches a step, 2 and 1 an observation, 1 a reset, with the same
+arithmetic; the card tests hold them to the plain versions.
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.env import geometry as geo
 from rvo3d_tpu_torch.env.obstacles import sphere_states8, step_spheres
 from rvo3d_tpu_torch.env.reward import mov_reward, rvo_reward
-from rvo3d_tpu_torch.env.rvo import vo_observe
+from rvo3d_tpu_torch.env.rvo import vo_observe, vo_reward_info
 from rvo3d_tpu_torch.env.state import (DroneState, StepOutput, WorldSpec,
                                        init_drone_state)
+from rvo3d_tpu_torch.ops import env_drones
 
 
 def drone_states_12(world: WorldSpec, state: DroneState,
@@ -59,7 +67,29 @@ def reset(world: WorldSpec, p: EnvParams, lead=(), dtype=None) -> DroneState:
 def reset_where(world: WorldSpec, state: DroneState,
                 mask: torch.Tensor) -> DroneState:
     """Reset drones where mask [..., N]; the others are untouched. Sphere
-    obstacles of a lane reset only when every drone of it resets."""
+    obstacles of a lane reset only when every drone of it resets. The
+    `reset` pass for CUDA tensors, reset_where_plain for CPU tensors."""
+    if not state.pos.is_cuda:
+        return reset_where_plain(world, state, mask)
+    return _reset_where_passes(world, state, mask)
+
+
+def _reset_where_passes(world: WorldSpec, state: DroneState,
+                        mask: torch.Tensor) -> DroneState:
+    fields = env_drones.reset(world, state, mask)
+    if world.sphere_count:
+        full = torch.all(mask, dim=-1)[..., None, None]
+        init = world.spheres.init.to(state.pos.dtype)
+        fields["sphere_pos"] = torch.where(full, init[..., 0:3], state.sphere_pos)
+        fields["sphere_vel"] = torch.where(full, init[..., 3:6], state.sphere_vel)
+    else:
+        fields["sphere_pos"], fields["sphere_vel"] = state.sphere_pos, state.sphere_vel
+    return DroneState(**fields)
+
+
+def reset_where_plain(world: WorldSpec, state: DroneState,
+                      mask: torch.Tensor) -> DroneState:
+    """reset_where in plain PyTorch."""
     fresh = init_drone_state(world, mask.shape[:-1], state.pos.dtype)
     full = torch.all(mask, dim=-1)
 
@@ -86,7 +116,30 @@ def _vo_others(world: WorldSpec, state: DroneState,
 def observe(world: WorldSpec, state: DroneState,
             p: EnvParams) -> Tuple[StepOutput, DroneState]:
     """Observation-only pass with a zero action; obs rounded to 2 decimals;
-    reward and done are zero (ir_gym.observation)."""
+    reward and done are zero (ir_gym.observation). The `obs` and `post`
+    passes around a VO launch for CUDA tensors, observe_plain for CPU
+    tensors."""
+    if not state.pos.is_cuda:
+        return observe_plain(world, state, p)
+    return _observe_passes(world, state, p)
+
+
+def _observe_passes(world: WorldSpec, state: DroneState,
+                    p: EnvParams) -> Tuple[StepOutput, DroneState]:
+    states12, obs_self, max_dev, act0 = env_drones.obs(world, state, p)
+    state = state._replace(max_deviation=max_dev)
+    vo = vo_observe(states12, act0, world.buildings, world.building_mask, p,
+                    others=_vo_others(world, state, states12))
+    reward, done = env_drones.post_obs(world, state, vo.obs_nbr, vo.obs_mask, p)
+    out = StepOutput(obs_self=obs_self, obs_nbr=vo.obs_nbr, obs_mask=vo.obs_mask,
+                     reward=reward, done=done, info_arrive=state.arrive_flag,
+                     finish=state.dest_arrive_flag)
+    return out, state
+
+
+def observe_plain(world: WorldSpec, state: DroneState,
+                  p: EnvParams) -> Tuple[StepOutput, DroneState]:
+    """observe in plain PyTorch."""
     states12, state = drone_states_12(world, state, p)
     vo = vo_observe(states12, torch.zeros_like(state.vel), world.buildings,
                     world.building_mask, p,
@@ -109,7 +162,42 @@ def step(world: WorldSpec, state: DroneState, abs_action: torch.Tensor,
     """One step of every lane. abs_action [..., N, 3] is the absolute
     [acc, yaw, pitch] command. With p.noise, `noise` holds pre-drawn
     standard-normal samples [..., N, 3]; they are scaled by control_std and
-    perturb the position update only (drone.py:150-169)."""
+    perturb the position update only (drone.py:150-169). The `pre`, `mid`
+    and `post` passes around the two VO launches for CUDA tensors,
+    step_plain for CPU tensors."""
+    if not state.pos.is_cuda:
+        return step_plain(world, state, abs_action, p, noise)
+    return _step_passes(world, state, abs_action, p, noise)
+
+
+def _step_passes(world: WorldSpec, state: DroneState, abs_action: torch.Tensor,
+                 p: EnvParams, noise: Optional[torch.Tensor]
+                 ) -> Tuple[DroneState, StepOutput]:
+    if world.sphere_count:
+        sp, sv = step_spheres(state.sphere_pos, state.sphere_vel,
+                              world.spheres, world.map_size, p.dt,
+                              p.goal_threshold)
+        state = state._replace(sphere_pos=sp, sphere_vel=sv)
+    states12_pre = env_drones.pre(world, state, p)
+    info = vo_reward_info(states12_pre, abs_action, p,
+                          others=_vo_others(world, state, states12_pre))
+    mid = env_drones.mid(world, state, states12_pre, abs_action, info.vo_flag,
+                         info.min_exp_time, p, noise)
+    state = state._replace(**mid.fields)
+    vo = vo_observe(mid.states12, abs_action, world.buildings, world.building_mask,
+                    p, others=_vo_others(world, state, mid.states12))
+    reward, done = env_drones.post(world, state, vo.collision, mid, vo.obs_nbr,
+                                    vo.obs_mask, p)
+    out = StepOutput(obs_self=mid.obs_self, obs_nbr=vo.obs_nbr, obs_mask=vo.obs_mask,
+                     reward=reward, done=done, info_arrive=state.arrive_flag,
+                     finish=state.dest_arrive_flag)
+    return state, out
+
+
+def step_plain(world: WorldSpec, state: DroneState, abs_action: torch.Tensor,
+               p: EnvParams, noise: Optional[torch.Tensor] = None
+               ) -> Tuple[DroneState, StepOutput]:
+    """step in plain PyTorch."""
     dtype = state.pos.dtype
 
     if world.sphere_count:

@@ -4,8 +4,9 @@ load them with ctypes.
 Each `csrc/<name>.cu` exposes `extern "C"` launchers that take raw device
 pointers and a cudaStream_t, so no PyTorch header is compiled and the build
 takes seconds. The library is written under `build/torch_kernels/` at the
-repo root, named by a hash of its source and flags, and reused while that
-hash holds. Nothing is built at import time: the first CUDA launch builds.
+repo root, named by a hash of its source, the shared headers (`csrc/*.cuh`)
+and the flags, and reused while that hash holds. Nothing is built at import
+time: the first CUDA launch builds.
 """
 
 from __future__ import annotations
@@ -45,8 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers of
+    csrc/ (which a source may include) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -55,11 +55,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from rvo3d_tpu_torch.ops import masked_gru, vo_pairs
+from rvo3d_tpu_torch.ops import env_drones, masked_gru, vo_pairs
 from rvo3d_tpu_torch.utils import profiler
 
 WARMUP = 1   # eager steps on the side stream before the capture
-COUNTED = (masked_gru, vo_pairs)   # kernels whose `launches` replays add to
+COUNTED = (masked_gru, vo_pairs, env_drones)   # kernels whose `launches` replays add to
 
 
 def on_card(device) -> bool:

@@ -64,6 +64,7 @@ from rvo3d_tpu_torch.bench.flagship import flagship_world
 from rvo3d_tpu_torch.config import EnvParams, ModelConfig, TrainConfig
 from rvo3d_tpu_torch.env.env import reset
 from rvo3d_tpu_torch.models import ActorCritic
+from rvo3d_tpu_torch.ops import env_drones
 from rvo3d_tpu_torch.ops import masked_gru as mg
 from rvo3d_tpu_torch.ops import vo_pairs
 from rvo3d_tpu_torch import serving
@@ -130,26 +131,29 @@ def test_launches_count_the_capture_launches_times_the_replays(monkeypatch):
         def replay(self):        # a replay runs no Python launch
             Graph.replays += 1
 
-    def body():                  # launches the GRU kernel twice, the VO kernel 3 times
+    def body():                  # the GRU kernel twice, the VO kernel 3 times, 6 env passes
         mg.launches += 2
         vo_pairs.launches += 3
+        env_drones.launches += 6
 
     def capture(fn, stream, pool=None):
         fn()
         return Graph()
     monkeypatch.setattr(mg, "launches", 0)
     monkeypatch.setattr(vo_pairs, "launches", 0)
+    monkeypatch.setattr(env_drones, "launches", 0)
     monkeypatch.setattr(graphs, "_side_stream", lambda dev: None)
     monkeypatch.setattr(graphs, "_on_stream", lambda stream, fn: fn())
     monkeypatch.setattr(graphs, "_capture", capture)
     g = graphs.StepGraph(body, "cuda")
     g.step()                                         # the eager warm-up
-    assert (mg.launches, vo_pairs.launches, g.graph) == (2, 3, None)
+    assert (mg.launches, vo_pairs.launches, env_drones.launches, g.graph) == (2, 3, 6, None)
     for _ in range(5):                               # capture + 5 replays
         g.step()
-    assert graphs.COUNTED == (mg, vo_pairs)
-    assert (g.kernel_launches, g.replays, Graph.replays) == ((2, 3), 5, 5)
-    assert (mg.launches, vo_pairs.launches) == (2 + 5 * 2, 3 + 5 * 3)
+    assert graphs.COUNTED == (mg, vo_pairs, env_drones)
+    assert (g.kernel_launches, g.replays, Graph.replays) == ((2, 3, 6), 5, 5)
+    assert (mg.launches, vo_pairs.launches, env_drones.launches) == (2 + 5 * 2, 3 + 5 * 3,
+                                                                    6 + 5 * 6)
 
 
 def test_counters_made_in_the_capture_are_added_by_each_replay(monkeypatch):
