@@ -5,12 +5,6 @@ Run from the repo root, with no arguments:
 
     python3 chip_smoke.py
 
-or, to also time an older one-block masked_gru.cu (the PR-4 source, e.g.
-`git show 5a338a1:rvo3d_tpu_torch/csrc/masked_gru.cu > OLD.cu`) in turns
-with this kernel at the timed batches:
-
-    python3 chip_smoke.py --old-kernel OLD.cu
-
 It builds the hand-written CUDA kernel from csrc/ with nvcc, holds it
 against its plain torch version at the serving path's shapes (one
 direction each way, and both biGRU directions fused in one launch), times
@@ -182,7 +176,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import dataclasses
 import io
 import json
@@ -808,8 +801,6 @@ def reference_state_dict(seed, hidden=256, heads=(256, 256)):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-kernel", help="an older one-block masked_gru.cu "
-                    "(PR-4 interface) to time in turns with this kernel")
     ap.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -855,8 +846,8 @@ def main(argv=None) -> int:
 
     def build():
         out = {}
-        for name, mod in (("masked_gru", mg), ("vo_pairs", vp), ("env_drones", ed)):
-            mod.library()
+        for name in ("masked_gru", "vo_pairs", "env_drones"):
+            _build.load(name)
             info = _build.BUILD_INFO[name]
             ptxas = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
@@ -963,47 +954,6 @@ def main(argv=None) -> int:
         return {"max_abs_err": errs, "atol": ATOL, "B": b_main, "H": hidden,
                 "S": s_len, "bound_peak": "3xTF32 = 495/3 TFLOP/s", "timed": timed}
     run_phase("kernel_vs_plain", kernel_checks)
-
-    def old_kernel_in_turns():
-        so = os.path.join(_build.BUILD_DIR, "masked_gru_old.so")
-        os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
-                        args.old_kernel], check=True, capture_output=True)
-        fn = ctypes.CDLL(so).masked_gru_forward
-        c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn.argtypes = [c, i64, i64, i64, c, i64, i64, c, c, c, c, c,
-                       i32, i32, i32, i32, i32, c]
-        fn.restype = ctypes.c_int
-
-        def one(xs, ms, w, reverse):   # one direction per launch
-            out = torch.empty(xs.shape[1], hidden, device=dev)
-            err = fn(xs.data_ptr(), *xs.stride(), ms.data_ptr(), *ms.stride(),
-                     *(t.data_ptr() for t in w), out.data_ptr(), s_len,
-                     xs.shape[1], in_dim, hidden, reverse,
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"old kernel: cudaError {err}")
-            return out
-
-        timed = {}
-        for label, b, kind in [(str(b), b, "random") for b in TIMED_B] + [
-                (f"{b_main}_last_slot", b_main, "last")]:
-            xs, ms, fwd, bwd = gru_case(b, kind)
-            runs = {"new": lambda: mg.masked_bigru_scan_cuda(xs, ms, fwd, bwd),
-                    "old": lambda: one(xs, ms, fwd, 0) + one(xs, ms, bwd, 1)}
-            ref = mg.masked_bigru_scan_plain(xs, ms, fwd, bwd)
-            errs = {k: (f() - ref).abs().max().item() for k, f in runs.items()}
-            if not max(errs.values()) <= ATOL:
-                raise AssertionError(f"B={label}: max |kernel - plain| {errs} > {ATOL}")
-            iters = 30 if b <= 4096 else 5
-            times = {"new": [], "old": []}
-            for k in ("new", "old", "old", "new"):
-                times[k].append(cuda_ms(runs[k], iters))
-            timed[label] = {"new_bigru_ms": times["new"], "old_bigru_ms": times["old"],
-                            "max_abs_err": errs}
-        return {"old_source": args.old_kernel, "timed": timed}
-    if args.old_kernel:
-        run_phase("old_kernel_in_turns", old_kernel_in_turns)
 
     # ---- the env on the card against the env on the CPU (which the tests
     # hold to the NumPy oracle), float64, same actions ----

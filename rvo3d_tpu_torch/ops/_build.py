@@ -6,20 +6,27 @@ pointers and a cudaStream_t, so no PyTorch header is compiled and the build
 takes seconds. The library is written under `build/torch_kernels/` at the
 repo root, named by a hash of its source, the shared headers (`csrc/*.cuh`)
 and the flags, and reused while that hash holds. Nothing is built at import
-time: the first CUDA launch builds.
+time: the first CUDA launch builds. The wrappers in ops/ call a library's
+functions through `launcher`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Sequence
+
+import torch
+
+from rvo3d_tpu_torch.utils import profiler
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -32,6 +39,12 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": nvcc wall time (0 when reused), "log": nvcc output, "path": .so}
 BUILD_INFO: Dict[str, dict] = {}
+
+# (states dtype, actions dtype) -> the dtype code vo_pairs_launch and
+# env_drones_launch take
+DTYPES = {(torch.float32, torch.float32): 0,
+          (torch.float64, torch.float64): 1,
+          (torch.float64, torch.float32): 2}
 
 
 def nvcc_path() -> str:
@@ -82,15 +95,46 @@ def build(name: str) -> str:
     return so
 
 
-def load(name: str,
-         on_load: Optional[Callable[[ctypes.CDLL], ctypes.CDLL]] = None) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use; `on_load`
-    runs once on a newly loaded library (to set its ctypes signatures)."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            if on_load is not None:
-                lib = on_load(lib)
-            _LIBS[name] = lib
+            lib = _LIBS[name] = ctypes.CDLL(build(name))
         return lib
+
+
+@contextlib.contextmanager
+def _stream(device: torch.device):
+    """The CUDA `device` made current; yields its current stream's handle."""
+    if device.type != "cuda":
+        raise ValueError(f"the hand-written kernels take CUDA tensors, got {device}")
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def add_launches(name: str, n: int) -> None:
+    """n launches added to ops/<name>.py's `launches`."""
+    sys.modules[f"{__package__}.{name}"].launches += n
+
+
+def launcher(name: str, fn: str, argtypes: Sequence, stream: bool = True,
+             counted: bool = True) -> Callable[..., None]:
+    """csrc/<name>.cu's extern "C" `fn` (argtypes: all but the stream; it
+    returns a cudaError_t) as f(device, *args): fn(*args) with the CUDA
+    device current and, when `stream`, its current stream last; raises on a
+    nonzero return, and when `counted` counts a launch (profiler.tally:
+    a graph's replays count what its capture launched)."""
+    signature = list(argtypes) + ([ctypes.c_void_p] if stream else [])
+
+    def call(device, *args) -> None:
+        with _stream(torch.device(device)) as handle:
+            f = getattr(load(name), fn)
+            if f.argtypes is None:
+                f.argtypes, f.restype = signature, ctypes.c_int
+            err = f(*args, handle) if stream else f(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn} failed: cudaError {err}")
+        if counted:
+            profiler.tally(add_launches, name)
+    return call

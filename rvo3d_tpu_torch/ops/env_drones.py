@@ -25,7 +25,7 @@ states) is read through each leaf's lane stride, with no copy.
 While the recorder is on (utils/profiler.py), each launch adds 1 to
 `env_drones.<pass>.launches` and its rows to `env_drones.<pass>.rows`, for
 the passes pre, mid, post, obs and reset; a CUDA graph's replays add the
-counts its capture took (utils/profiler.capturing). Off, nothing is counted.
+counts its capture took (utils/profiler.tally). Off, nothing is counted.
 """
 
 from __future__ import annotations
@@ -40,17 +40,10 @@ from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.ops import _build
 from rvo3d_tpu_torch.utils import profiler
 
-# Launches of the CUDA passes since the last reset (counted through graph
-# replays by utils/graphs.py, as vo_pairs' are).
-launches = 0
+launches = 0     # of the CUDA passes since the last reset
 
 THREADS = 256    # one row a thread
 _MODES = {"pre": 0, "mid": 1, "post": 2, "obs": 3, "post_obs": 4, "reset": 5}
-
-# (states dtype, actions dtype) -> the launcher's dtype code
-_DTYPES = {(torch.float32, torch.float32): 0,
-           (torch.float64, torch.float64): 1,
-           (torch.float64, torch.float32): 2}
 
 _IN = ("pos", "vel", "yaw", "pitch", "wp", "arrive", "dest", "coll", "rrl", "extra",
        "maxdev", "prev")
@@ -78,16 +71,8 @@ class _Params(ctypes.Structure):
         "progress_on")]
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the launcher's ctypes signature once, when the library loads."""
-    lib.env_drones_launch.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.env_drones_launch.restype = ctypes.c_int
-    return lib
-
-
-def library() -> ctypes.CDLL:
-    return _build.load("env_drones", on_load=bind)
+_kernel = _build.launcher("env_drones", "env_drones_launch",
+                          [ctypes.POINTER(_Params)] + [ctypes.c_int] * 3)
 
 
 class Mid(NamedTuple):
@@ -187,29 +172,13 @@ def _params(world, state, p: Optional[EnvParams]):
     return q, dtype
 
 
-def _note(mode: str, rows: int) -> None:
-    """One launch added to the recorder's counters."""
-    if profiler.counting():
-        profiler.count(f"env_drones.{mode}.launches", 1)
-        profiler.count(f"env_drones.{mode}.rows", rows)
-
-
 def _launch(q: _Params, mode: str, dtype, act_dtype, device, counted: str) -> None:
-    global launches
-    if device.type != "cuda":
-        raise ValueError(f"the env passes take CUDA tensors, got {device}")
-    if not q.rows:
-        return
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.env_drones_launch(ctypes.byref(q), _MODES[mode],
-                                    _DTYPES[(dtype, act_dtype)],
-                                    -(-q.rows // THREADS), stream)
-    if err != 0:
-        raise RuntimeError(f"env_drones_launch ({mode}) failed: cudaError {err}")
-    launches += 1
-    _note(counted, q.rows)
+    if q.rows:
+        _kernel(device, ctypes.byref(q), _MODES[mode], _build.DTYPES[(dtype, act_dtype)],
+                -(-q.rows // THREADS))
+        if profiler.counting():
+            profiler.count(f"env_drones.{counted}.launches", 1)
+            profiler.count(f"env_drones.{counted}.rows", q.rows)
 
 
 def _empty(like: torch.Tensor, shape, dtype=None) -> torch.Tensor:
@@ -245,7 +214,7 @@ def mid(world, state, states12, actions, vo_flag, min_exp, p: EnvParams,
     q, dtype = _params(world, state, p)
     lead = state.pos.shape[:-1]
     pos = state.pos
-    if (dtype, actions.dtype) not in _DTYPES:
+    if (dtype, actions.dtype) not in _build.DTYPES:
         raise TypeError(f"the env passes take actions of the states' type or float32; "
                         f"got {actions.dtype} beside {dtype} states")
     actions = _same(actions, lead + (3,), actions.dtype, pos.device, "actions")

@@ -133,22 +133,11 @@ class _Params(ctypes.Structure):
                                              "ndirs", "reverse", "ntiles")]
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the launchers' ctypes signatures once, when a library loads."""
-    lib.masked_gru_forward.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]
-    lib.masked_gru_forward.restype = ctypes.c_int
-    lib.masked_gru_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.POINTER(ctypes.c_int)]
-    lib.masked_gru_max_active_clusters.restype = ctypes.c_int
-    lib.globaltimer_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_void_p]
-    lib.globaltimer_stamp.restype = ctypes.c_int
-    return lib
-
-
-def library() -> ctypes.CDLL:
-    return _build.load("masked_gru", on_load=bind)
+_forward = _build.launcher("masked_gru", "masked_gru_forward",
+                           [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int])
+_max_clusters = _build.launcher("masked_gru", "masked_gru_max_active_clusters",
+                                [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                                stream=False, counted=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,10 +145,7 @@ def max_active_clusters(rows: int, smem: int, device_index: int = 0) -> int:
     """Clusters of 8 CTAs (tiles of `rows` rows, `smem` bytes each) that the
     card holds at once (cudaOccupancyMaxActiveClusters)."""
     n = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = library().masked_gru_max_active_clusters(rows, smem, ctypes.byref(n))
-    if err != 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {err}")
+    _max_clusters(torch.device("cuda", device_index), rows, smem, ctypes.byref(n))
     if n.value < 1:
         raise RuntimeError(f"the card holds no cluster of {CLUSTER} CTAs with "
                            f"{smem} bytes of shared memory")
@@ -228,7 +214,6 @@ def launch(xs, mask, weights: Sequence[Sequence[torch.Tensor]], reverse=False):
     (`weights` = [(w_ih, w_hh, b_ih, b_hh)], walked in reverse if
     `reverse`) or both (`weights` = [fwd, bwd], summed). Raises on a bad
     argument, a failed build or a failed launch."""
-    global launches
     if not xs.is_cuda:
         raise ValueError("the masked GRU kernel takes CUDA tensors")
     if len(weights) not in (1, 2):
@@ -246,7 +231,6 @@ def launch(xs, mask, weights: Sequence[Sequence[torch.Tensor]], reverse=False):
     if b == 0:
         return out
     dev = xs.device.index if xs.device.index is not None else torch.cuda.current_device()
-    lib = library()
     geo = card_geometry(b, hidden, in_dim, ndirs, dev)
     p = _Params()
     p.xs, p.mask, p.out = xs.data_ptr(), mask.data_ptr(), out.data_ptr()
@@ -259,13 +243,7 @@ def launch(xs, mask, weights: Sequence[Sequence[torch.Tensor]], reverse=False):
     p.S, p.B, p.IN, p.H, p.Hp = s_len, b, in_dim, hidden, geo.hidden_pad
     p.rows, p.ndirs, p.ntiles = geo.rows, ndirs, geo.tiles
     p.reverse = int(bool(reverse))
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.masked_gru_forward(ctypes.byref(p), geo.clusters,
-                                     geo.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(f"masked_gru_forward launch failed: cudaError {err}")
-    launches += 1
+    _forward(xs.device, ctypes.byref(p), geo.clusters, geo.smem_bytes)
     return out
 
 

@@ -23,7 +23,7 @@ to the counters `vo_pairs.<mode>.<key>`, mode `reward` or `observe`, keys
 `launches`, `rows`, `pairs` (rows x M), `slots` (rows x nm written,
 observe), `others` (values of `others` read) and `buildings` (building
 rows read, observe); a CUDA graph's replays add the shapes its capture
-took (utils/profiler.capturing). Off, nothing is counted.
+took (utils/profiler.tally). Off, nothing is counted.
 """
 
 from __future__ import annotations
@@ -39,17 +39,10 @@ from rvo3d_tpu_torch.config import EnvParams
 from rvo3d_tpu_torch.ops import _build
 from rvo3d_tpu_torch.utils import profiler
 
-# Launches of the CUDA kernel since the last reset (counted through graph
-# replays by utils/graphs.py, as masked_gru's are).
-launches = 0
+launches = 0             # of the CUDA kernel since the last reset
 
 THREADS = 256            # per block; each group of G threads owns one row
 MAX_SMEM = 48 * 1024     # the keys of a block's rows, without an opt-in
-
-# (states dtype, actions dtype) -> the launcher's dtype code
-_DTYPES = {(torch.float32, torch.float32): 0,
-           (torch.float64, torch.float64): 1,
-           (torch.float64, torch.float32): 2}
 
 
 @dataclass(frozen=True)
@@ -92,17 +85,8 @@ class _Params(ctypes.Structure):
                                              "parity")]
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the launcher's ctypes signature once, when the library loads."""
-    lib.vo_pairs_launch.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
-    lib.vo_pairs_launch.restype = ctypes.c_int
-    return lib
-
-
-def library() -> ctypes.CDLL:
-    return _build.load("vo_pairs", on_load=bind)
+_kernel = _build.launcher("vo_pairs", "vo_pairs_launch",
+                          [ctypes.POINTER(_Params)] + [ctypes.c_int] * 4)
 
 
 def _inputs(states, actions, p: EnvParams, others) -> _Params:
@@ -116,7 +100,7 @@ def _inputs(states, actions, p: EnvParams, others) -> _Params:
     if tuple(actions.shape) != tuple(states.shape[:-1]) + (3,):
         raise ValueError(f"actions must be {tuple(states.shape[:-1]) + (3,)}, "
                          f"got {tuple(actions.shape)}")
-    if (states.dtype, actions.dtype) not in _DTYPES:
+    if (states.dtype, actions.dtype) not in _build.DTYPES:
         raise TypeError(f"the VO pair kernel takes float32 or float64 states with "
                         f"actions of their type or float32; got {states.dtype}, "
                         f"{actions.dtype}")
@@ -175,17 +159,10 @@ def _note(q: _Params, observe: bool) -> None:
 
 def _launch(q: _Params, observe: bool, dtype: torch.dtype, act_dtype: torch.dtype,
             device) -> None:
-    global launches
     geo = launch_geometry(q.rows, q.M, dtype.itemsize)
     q.group = geo.group
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.vo_pairs_launch(ctypes.byref(q), int(observe), _DTYPES[(dtype, act_dtype)],
-                                  geo.blocks, geo.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(f"vo_pairs_launch failed: cudaError {err}")
-    launches += 1
+    _kernel(device, ctypes.byref(q), int(observe), _build.DTYPES[(dtype, act_dtype)],
+            geo.blocks, geo.smem_bytes)
     _note(q, observe)
 
 

@@ -15,13 +15,9 @@ step:
   - the second call captures the body on that stream (torch.cuda.graph)
     and replays it; every later call replays it.
 
-A replay launches the captured kernels without Python, so the
-hand-written kernels' `launches` (ops/masked_gru.py, ops/vo_pairs.py), which
-count their Python launches, would miss them: the capture's launches are
-taken back off each count, and each replay adds them again. The counts stay
-the number of kernels the card ran. Likewise the recorder's counters that
-the body adds while it is captured are kept (profiler.capturing) and added
-again by each replay made while the recorder is on.
+A replay launches the captured kernels without Python, so what the body
+counts while captured (its kernels' launches, the recorder's counters) is
+kept in one list (profiler.capturing) and added again by each replay.
 
 GraphedLoop is the loop every user runs (the bench chunk, bench.detail's
 policy chunk, the eval chunk, the rollout, each served batch shape): it
@@ -55,11 +51,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from rvo3d_tpu_torch.ops import env_drones, masked_gru, vo_pairs
 from rvo3d_tpu_torch.utils import profiler
 
 WARMUP = 1   # eager steps on the side stream before the capture
-COUNTED = (masked_gru, vo_pairs, env_drones)   # kernels whose `launches` replays add to
 
 
 def on_card(device) -> bool:
@@ -118,9 +112,8 @@ def _capture(body: Callable[[], None], stream, pool=None):
 
 class StepGraph:
     """body() as one step of a loop on a CUDA device: warmed up, captured
-    once and replayed (the module's docstring). `kernel_launches` is the
-    launches of each kernel of COUNTED one replay makes, `replays` the
-    replays so far.
+    once and replayed (the module's docstring). `counts` is what the
+    capture counted (profiler.tally's entries), `replays` the replays so far.
     `pool`: a SharedPool to capture into. The capture is recorded as the
     span `capture_span` (name, attributes; utils/profiler.py)."""
 
@@ -135,8 +128,7 @@ class StepGraph:
         self.stream = _side_stream(dev)
         self.graph = None
         self.warmed = 0
-        self.kernel_launches = (0,) * len(COUNTED)
-        self.counts: list = []           # the recorder's counters a replay adds
+        self.counts: list = []
         self.replays = 0
         self.capture_span = ("graph.capture", {})
 
@@ -147,20 +139,14 @@ class StepGraph:
             self.warmed += 1
             return
         if self.graph is None:
-            before = [mod.launches for mod in COUNTED]
             name, attrs = self.capture_span
             with profiler.span(name, **attrs), profiler.capturing() as self.counts:
                 self.graph = _capture(self.body, self.stream,
                                       None if self.pool is None else self.pool.handle())
-            self.kernel_launches = tuple(mod.launches - b
-                                         for mod, b in zip(COUNTED, before))
-            for mod, b in zip(COUNTED, before):
-                mod.launches = b             # captured, not run
         self.graph.replay()
         self.replays += 1
-        for mod, n in zip(COUNTED, self.kernel_launches):
-            mod.launches += n
-        profiler.replay(self.counts)
+        for add, name, n in self.counts:
+            add(name, n)
 
 
 def clone_tree(tree: Any) -> Any:

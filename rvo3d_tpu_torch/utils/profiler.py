@@ -7,11 +7,11 @@ layers' metrics to read.
   span(name, **attrs)  a context manager around a block of host work; its
                        `__enter__` returns a handle (None when off)
   count(name, n=1)     adds n to a counter
-  capturing()          while a CUDA graph captures (utils/graphs.StepGraph):
-                       `count` appends (name, n) to the list it yields, since
-                       the captured work does not run then, and each replay
-                       hands the list to `replay(counts)`, which adds them
-                       while the recorder is on
+  tally(add, name, n=1)   add(name, n); while a CUDA graph captures
+                       (`capturing()`), (add, name, n) goes into the list
+                       it yields instead, for each replay to add
+                       (utils/graphs.StepGraph): `count`'s adds keep only
+                       while on, ops/_build.launcher's launches always
   keep(name, x)        keeps a clone of tensor x, on x's device, made on
                        the current stream with no sync (the graphed loops'
                        device stamps, the evaluator's masks)
@@ -20,8 +20,9 @@ layers' metrics to read.
   stamp(buf, t, col)   launches the one-thread kernel that writes the
                        card's %globaltimer (ns) into buf[t, col], t an int64
                        device step index: a timestamp that a CUDA graph
-                       holds (csrc/masked_gru.cu's `globaltimer_stamp`); a
-                       no-op on CPU tensors and for buf None
+                       holds (csrc/masked_gru.cu's `globaltimer_stamp`, not
+                       counted as a launch); a no-op on CPU tensors and for
+                       buf None
   recorded()           -> Recording(spans, counters, kept): device values
                        become host numbers here, never while recording
   clear()              forgets everything recorded
@@ -52,11 +53,12 @@ hook that checks the switch.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 
@@ -143,14 +145,23 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
-_CAPTURED: Optional[List[tuple]] = None      # a capture's counters
+_CAPTURED: Optional[List[tuple]] = None      # a capture's (add, name, n)
+
+
+def tally(add: Callable[[str, float], None], name: str, n: float = 1) -> None:
+    if _CAPTURED is not None:
+        _CAPTURED.append((add, name, n))
+    else:
+        add(name, n)
+
+
+def _add(name: str, n: float) -> None:
+    if on():
+        _REC.counters[name] = _REC.counters.get(name, 0) + n
 
 
 def count(name: str, n: float = 1) -> None:
-    if _CAPTURED is not None:
-        _CAPTURED.append((name, n))
-    elif on():
-        _REC.counters[name] = _REC.counters.get(name, 0) + n
+    tally(_add, name, n)
 
 
 def counting() -> bool:
@@ -168,12 +179,6 @@ def capturing() -> Iterator[List[tuple]]:
         _CAPTURED = prev
 
 
-def replay(counts: List[tuple]) -> None:
-    if counts and on():
-        for name, n in counts:
-            _REC.counters[name] = _REC.counters.get(name, 0) + n
-
-
 def keep(name: str, x: torch.Tensor) -> None:
     if on():
         _REC.kept.setdefault(name, []).append(x.clone())
@@ -187,14 +192,11 @@ def device_time(handle: Optional[int], start, end) -> None:
 def stamp(buf: Optional[torch.Tensor], t: torch.Tensor, col: int) -> None:
     if buf is None or not buf.is_cuda:
         return
-    from rvo3d_tpu_torch.ops import masked_gru
+    from rvo3d_tpu_torch.ops import _build      # which imports this module
 
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = masked_gru.library().globaltimer_stamp(buf.data_ptr(), t.data_ptr(), col,
-                                                     buf.shape[0], stream)
-    if err != 0:
-        raise RuntimeError(f"globaltimer_stamp launch failed: cudaError {err}")
+    stamp_launch = _build.launcher("masked_gru", "globaltimer_stamp", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int], counted=False)
+    stamp_launch(buf.device, buf.data_ptr(), t.data_ptr(), col, buf.shape[0])
 
 
 def recorded() -> Recording:

@@ -6,8 +6,9 @@ passes' input checks raise on wrong shapes, unsupported dtypes, mixed
 devices and, last, on CPU tensors; `step`, `observe` and `reset_where` on
 CPU tensors are `step_plain`, `observe_plain` and `reset_where_plain` and
 never reach the passes; the passes' source, built for the host by g++
-(tests/host_cuda/ shims the CUDA names), equals the plain path on the
-CPU in float64 over 30 chained steps (values within 1e-12, flags equal).
+(tests/host_cuda/ shims the CUDA names) and launched by ops/_build.launcher
+in place of the card's library, equals the plain path on the CPU in
+float64 over 30 chained steps (values within 1e-12, flags equal).
 
 On a card (marked gpu; skips without one): the passes against the plain
 PyTorch path on the card over 60 chained steps (the plain path's chain; the
@@ -25,6 +26,7 @@ the replays. This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_env_drones.py
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import math
@@ -220,7 +222,7 @@ HOST_CUDA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "host_cuda"
 def host_passes(tmp_path_factory):
     """csrc/env_drones.cu built for the host by g++ (tests/host_cuda/ shims
     the CUDA names it uses; a launch runs every thread in turn), as the
-    launcher the passes call."""
+    library the passes' launcher calls."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the passes for the host")
@@ -234,7 +236,7 @@ def host_passes(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
                     f"-I{HOST_CUDA}", f"-I{_build.CSRC_DIR}", "-o", str(so), str(cpp)],
                    check=True, capture_output=True)
-    return ed.bind(ctypes.CDLL(str(so)))
+    return ctypes.CDLL(str(so))
 
 
 @pytest.mark.parametrize("name,act_dtype,setting", [
@@ -247,17 +249,19 @@ def test_passes_built_for_the_host_equal_plain_in_float64(host_passes, monkeypat
     """The passes' arithmetic and control flow on the CPU: float64, where
     the host's libm and PyTorch's CPU kernels part from the card's only
     in the last bits, so values within 1e-12 and every flag equal."""
-    def launch(q, mode, dtype, a_dtype, device, counted):
-        if q.rows:
-            assert host_passes.env_drones_launch(
-                ctypes.byref(q), ed._MODES[mode], ed._DTYPES[(dtype, a_dtype)],
-                -(-q.rows // ed.THREADS), None) == 0
-    monkeypatch.setattr(ed, "_launch", launch)
+    @contextlib.contextmanager
+    def host_stream(device):
+        assert device.type == "cpu"
+        yield None
+
+    monkeypatch.setitem(_build._LIBS, "env_drones", host_passes)
+    monkeypatch.setattr(_build, "_stream", host_stream)
+    monkeypatch.setattr(ed, "launches", 0)
     world, n = _world(name, "cpu", torch.float64, lanes=8)
     p = EnvParams(num_drones=n, **SETTINGS.get(setting, {}))
     worst, listed, resets, finished = _chain(world, p, torch.float64, act_dtype, "cpu",
                                              lanes=8, steps=30)
-    assert resets > 0
+    assert resets > 0 and ed.launches > 0
     if name == "spheres":
         assert finished > 0
 

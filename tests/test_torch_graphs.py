@@ -24,16 +24,18 @@ epoch-end flag read from that index) then runs on the CPU, and:
     tie (as tests/test_torch_rollout.py's exact lifecycle test): records
     and flags exactly, values at 1e-12; the JAX PolicyServer at 1e-5;
   - StepGraph refuses a CPU device, a capture runs with the cyclic
-    garbage collector off (it runs just before), and StepGraph's launch count (with stubs in
-    place of the stream, the capture and the graph) is the warm-up's
-    launches plus the capture's launches times the replays, and the
-    recorder's counters the body adds while captured are added once a
-    replay while the recorder is on and not at all while it is off; GraphedLoop
-    writes records at the device step index and goes on from its carry.
+    garbage collector off (it runs just before), and (with stubs in place
+    of the stream, the capture and the graph) what the body counts while
+    captured is one list: each replay adds its kernel launches, so a
+    kernel's `launches` is the warm-up's plus the capture's times the
+    replays, and its recorder counters once a replay while the recorder is
+    on and not at all while it is off; GraphedLoop writes records at the
+    device step index and goes on from its carry.
 The graphs themselves are held to the eager loops on the card by the
 `gpu` cases of tests/test_torch_cuda.py and chip_smoke.py's `graphs` phase.
 """
 
+import collections
 import contextlib
 import functools
 import gc
@@ -64,7 +66,7 @@ from rvo3d_tpu_torch.bench.flagship import flagship_world
 from rvo3d_tpu_torch.config import EnvParams, ModelConfig, TrainConfig
 from rvo3d_tpu_torch.env.env import reset
 from rvo3d_tpu_torch.models import ActorCritic
-from rvo3d_tpu_torch.ops import env_drones
+from rvo3d_tpu_torch.ops import _build, env_drones
 from rvo3d_tpu_torch.ops import masked_gru as mg
 from rvo3d_tpu_torch.ops import vo_pairs
 from rvo3d_tpu_torch import serving
@@ -124,7 +126,10 @@ def test_step_graph_refuses_the_cpu():
         graphs.StepGraph(lambda: None, "cpu")
 
 
-def test_launches_count_the_capture_launches_times_the_replays(monkeypatch):
+@pytest.mark.parametrize("recorder", ["off", "on"])
+def test_what_the_capture_counted_is_added_by_each_replay(monkeypatch, recorder):
+    """One list of what the capture counted: each replay adds the kernels'
+    launches always and the recorder's counters while it is on."""
     class Graph:
         replays = 0
 
@@ -132,54 +137,39 @@ def test_launches_count_the_capture_launches_times_the_replays(monkeypatch):
             Graph.replays += 1
 
     def body():                  # the GRU kernel twice, the VO kernel 3 times, 6 env passes
-        mg.launches += 2
-        vo_pairs.launches += 3
-        env_drones.launches += 6
-
-    def capture(fn, stream, pool=None):
-        fn()
-        return Graph()
-    monkeypatch.setattr(mg, "launches", 0)
-    monkeypatch.setattr(vo_pairs, "launches", 0)
-    monkeypatch.setattr(env_drones, "launches", 0)
-    monkeypatch.setattr(graphs, "_side_stream", lambda dev: None)
-    monkeypatch.setattr(graphs, "_on_stream", lambda stream, fn: fn())
-    monkeypatch.setattr(graphs, "_capture", capture)
-    g = graphs.StepGraph(body, "cuda")
-    g.step()                                         # the eager warm-up
-    assert (mg.launches, vo_pairs.launches, env_drones.launches, g.graph) == (2, 3, 6, None)
-    for _ in range(5):                               # capture + 5 replays
-        g.step()
-    assert graphs.COUNTED == (mg, vo_pairs, env_drones)
-    assert (g.kernel_launches, g.replays, Graph.replays) == ((2, 3, 6), 5, 5)
-    assert (mg.launches, vo_pairs.launches, env_drones.launches) == (2 + 5 * 2, 3 + 5 * 3,
-                                                                    6 + 5 * 6)
-
-
-def test_counters_made_in_the_capture_are_added_by_each_replay(monkeypatch):
-    def body():
+        for name, n in (("masked_gru", 2), ("vo_pairs", 3), ("env_drones", 6)):
+            for _ in range(n):
+                profiler.tally(_build.add_launches, name)
         profiler.count("body.steps")
         profiler.count("body.rows", 64)
 
     def capture(fn, stream, pool=None):
         fn()
-        return type("Graph", (), {"replay": lambda self: None})()
+        return Graph()
+    for mod in (mg, vo_pairs, env_drones):
+        monkeypatch.setattr(mod, "launches", 0)
     monkeypatch.setattr(graphs, "_side_stream", lambda dev: None)
     monkeypatch.setattr(graphs, "_on_stream", lambda stream, fn: fn())
     monkeypatch.setattr(graphs, "_capture", capture)
     profiler.clear()
     g = graphs.StepGraph(body, "cuda")
-    for _ in range(3):                   # warm-up, capture + replay, replay: off
-        g.step()
-    assert profiler.recorded().counters == {}
-    assert g.counts == [("body.steps", 1), ("body.rows", 64)]
-    assert not profiler.counting()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        for _ in range(4):               # 4 replays: on
+    g.step()                                         # the eager warm-up, recorder off
+    assert (mg.launches, vo_pairs.launches, env_drones.launches, g.graph) == (2, 3, 6, None)
+    on = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+    with on if recorder == "on" else contextlib.nullcontext():
+        for _ in range(5):                           # capture + 5 replays
             g.step()
     got = profiler.recorded().counters
     profiler.clear()
-    assert got == {"body.steps": 4, "body.rows": 4 * 64}
+    launched = collections.Counter(name for add, name, _ in g.counts
+                                   if add is _build.add_launches)
+    assert launched == {"masked_gru": 2, "vo_pairs": 3, "env_drones": 6}
+    assert [(name, n) for add, name, n in g.counts if add is not _build.add_launches] == [
+        ("body.steps", 1), ("body.rows", 64)]
+    assert (g.replays, Graph.replays) == (5, 5) and not profiler.counting()
+    assert (mg.launches, vo_pairs.launches, env_drones.launches) == (2 + 5 * 2, 3 + 5 * 3,
+                                                                    6 + 5 * 6)
+    assert got == ({"body.steps": 5, "body.rows": 5 * 64} if recorder == "on" else {})
 
 
 def test_graphed_loop_records_at_the_step_index_and_goes_on(eager_graphs):

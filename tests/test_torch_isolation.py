@@ -1,7 +1,8 @@
 """The port stands alone: nothing in rvo3d_tpu_torch/ or chip_smoke.py
 imports JAX, its libraries or the JAX package, or names the JAX package's
 run artifacts or reference fixtures; the port imports and steps with those
-modules blocked; and chip_smoke.py refuses to run without a CUDA card."""
+modules blocked; chip_smoke.py refuses to run without a CUDA card; and
+utils/graphs.py and utils/profiler.py name no kernel module of ops/."""
 
 import ast
 import os
@@ -187,3 +188,24 @@ def test_render_and_worldgen_import_without_optional_libraries():
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "optional-ok" in proc.stdout
+
+
+@pytest.mark.parametrize("name,allowed", [("graphs", set()), ("profiler", {"_build"})])
+def test_utilities_reach_no_kernel_module(name, allowed):
+    """utils/graphs.py imports nothing of ops/, and utils/profiler.py only
+    ops/_build.py (its stamp's launcher): adding a kernel edits neither."""
+    path = os.path.join(REPO, "rvo3d_tpu_torch", "utils", f"{name}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    reached = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        for parts in (m.split(".") for m in mods):
+            if parts[:2] == ["rvo3d_tpu_torch", "ops"]:
+                reached.add(parts[2] if len(parts) > 2 else "ops")
+    assert reached <= allowed, (name, reached)
