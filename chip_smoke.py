@@ -18,10 +18,16 @@ world16_dense (`product_eval`: success >= 0.85 and mean EpLen within 0.3
 of 30.91 over >= 256 episodes at the evaluator's 1e-3 std factor),
 fine-tunes it for 2 epochs of Trainer.run_epoch at the run's full width
 (`train`: 128 lanes x 16 drones, T = 300, biGRU-256, batched update,
-minibatch 16384, 20 pi / 50 v iterations; one line per epoch), and holds
-the pi- and v-loss gradients of 16384 of its rows, as they are and with
-random neighbour masks, kernel forward on the card against the plain path
-on the CPU (`train_grad_kernel_vs_plain`).
+minibatch 16384, 20 pi / 50 v iterations; one line per epoch, whose
+update must launch the hand-written backward, rvo3d_tpu_torch/ops/gru_grad.py
+(csrc/gru_grad.cu), once a pi or v iteration), and holds the pi- and v-loss
+gradients of 16384 of its rows, as they are and with random neighbour
+masks, kernel forward and backward on the card against the plain path on
+the CPU (`train_grad_kernel_vs_plain`); that phase times the backward
+kernel at both sets of rows beside its bound and the plain recompute it
+replaced, and fails if the kernel is the slower at the random rows. Every
+phase's line gives the backward's launches (`gru_grad_launches`), and the
+`kernels` line has its row.
 
 Then the multi-world slice: world32_mix and its route-reversed variant in
 alternate lanes (64 lanes x 32 drones, float64) stepped on the card
@@ -295,14 +301,22 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# phase -> launcher calls of the GRU backward kernel (ops/gru_grad.py) in it
+GRAD_LAUNCHES = {}
+
+
 def run_phase(name, fn):
-    t0 = time.perf_counter()
+    from rvo3d_tpu_torch.ops import gru_grad
+
+    t0, g0 = time.perf_counter(), gru_grad.launches
     try:
         out = fn() or {}
     except Exception as e:  # a failed phase ends the run with a non-zero code
         emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}",
               "seconds": time.perf_counter() - t0})
         raise SystemExit(1) from e
+    if gru_grad.launches > g0:
+        GRAD_LAUNCHES[name] = out["gru_grad_launches"] = gru_grad.launches - g0
     emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0, **out})
     return out
 
@@ -355,6 +369,24 @@ def gru_bound(xs, ms, fwd, ndirs=2):
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ms_f32_simt": max(flops / F32_PEAK, t_bytes) * 1e3}
+
+
+def gru_grad_bound(ms, in_dim, hidden, ndirs=2):
+    """The least time of one call of the backward kernel on these masks,
+    weight gradients only: the products the data needs at the float32 FMA
+    peak (at every active step the input gates and dW_ih; at every active
+    step after a row's first the hidden gates, dW_hh and the carry's
+    gradient), or the bytes read once (xs, mask, grad_out, the weights) and
+    written once (the weight gradients)."""
+    active = float(ms.sum().item())
+    rows_active = float((ms.sum(0) > 0).sum().item())
+    g3 = 3 * hidden
+    flops = 2.0 * ndirs * (2 * active * in_dim + 3 * (active - rows_active) * hidden) * g3
+    weights = in_dim * g3 + hidden * g3 + 2 * g3
+    nbytes = 4.0 * (ms.numel() * (in_dim + 1) + ms.shape[1] * hidden + 2 * ndirs * weights)
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BYTES_S
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 # IEEE operations of one pair as csrc/vo_pairs.cu runs them (pair_vo: the
@@ -829,6 +861,7 @@ def main(argv=None) -> int:
     from rvo3d_tpu_torch.models import encoder as encoder_mod
     from rvo3d_tpu_torch.ops import _build
     from rvo3d_tpu_torch.ops import env_drones as ed
+    from rvo3d_tpu_torch.ops import gru_grad as gg
     from rvo3d_tpu_torch.ops import masked_gru as mg
     from rvo3d_tpu_torch.ops import vo_pairs as vp
     from rvo3d_tpu_torch.serving import PolicyServer
@@ -846,7 +879,7 @@ def main(argv=None) -> int:
 
     def build():
         out = {}
-        for name in ("masked_gru", "vo_pairs", "env_drones"):
+        for name in ("masked_gru", "vo_pairs", "env_drones", "gru_grad"):
             _build.load(name)
             info = _build.BUILD_INFO[name]
             ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -1279,7 +1312,7 @@ def main(argv=None) -> int:
         def hook(name, data):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            marks.append((ev, mg.launches, vp.launches, ed.launches))
+            marks.append((ev, mg.launches, vp.launches, ed.launches, gg.launches))
             if name == "gae":
                 active = data.obs_mask.sum(-1)
                 keep["rows"], keep["multi"] = active.numel(), (active > 1).sum()
@@ -1297,12 +1330,14 @@ def main(argv=None) -> int:
             torch.cuda.reset_peak_memory_stats()
             m = trainer.run_epoch()
             torch.cuda.synchronize()
-            (e0, l0, v0, d0), (e1, l1, v1, d1), (e2, l2, _, _), (e3, l3, _, _) = marks
+            (e0, l0, v0, d0, _), (e1, l1, v1, d1, _) = marks[:2]
+            (e2, l2, _, _, g2), (e3, l3, _, _, g3) = marks[2:]
             line = {"phase": "train_epoch", "epoch": epoch,
                     "epoch_time_s": m["epoch_time_s"], "steps_per_sec": m["steps_per_sec"],
                     "rollout_ms": e0.elapsed_time(e1), "gae_ms": e1.elapsed_time(e2),
                     "update_ms": e2.elapsed_time(e3),
                     "gru_launches_rollout": l1 - l0, "gru_launches_update": l3 - l2,
+                    "gru_grad_launches_update": g3 - g2,
                     "vo_launches_rollout": v1 - v0, "env_drones_launches_rollout": d1 - d0,
                     "pi_iters": m["pi_iters"], "kl": m["kl"], "pi_loss": m["pi_loss"],
                     "v_loss": m["v_loss"], "mean_step_reward": m["mean_step_reward"],
@@ -1320,6 +1355,10 @@ def main(argv=None) -> int:
             if line["gru_launches_rollout"] == 0 or line["gru_launches_update"] == 0:
                 raise AssertionError(f"epoch {epoch}: the kernel was not launched "
                                      "in the rollout and in the update")
+            if line["gru_grad_launches_update"] != tr.train_pi_iters + tr.train_v_iters:
+                raise AssertionError(f"epoch {epoch}: {line['gru_grad_launches_update']} "
+                                     "backward kernel launches in the update, not one a "
+                                     "pi or v iteration")
             if line["vo_launches_rollout"] == 0:
                 raise AssertionError(f"epoch {epoch}: the rollout never launched "
                                      "the VO pair kernel")
@@ -1398,15 +1437,16 @@ def main(argv=None) -> int:
         groups = ("encoder.fwd", "encoder.bwd", "encoder.ln", "actor", "critic", "log_std")
         report, failed = {}, []
         for case, batch in cases.items():
-            before = mg.launches
+            before, grad_before = mg.launches, gg.launches
             g_card = grads(ac_card, batch)
             torch.cuda.synchronize()
-            if mg.launches - before != 2:
-                raise AssertionError(f"{case}: {mg.launches - before} kernel launches "
-                                     "for two losses")
+            if (mg.launches - before, gg.launches - grad_before) != (2, 2):
+                raise AssertionError(f"{case}: {mg.launches - before} forward and "
+                                     f"{gg.launches - grad_before} backward kernel "
+                                     "launches for two losses")
             g_plain = plain_on_card(batch)
-            if mg.launches - before != 2:
-                raise AssertionError(f"{case}: the plain path launched the kernel")
+            if (mg.launches - before, gg.launches - grad_before) != (2, 2):
+                raise AssertionError(f"{case}: the plain path launched a kernel")
             g_cpu = grads(ac_cpu, ppo.AgentData(*[x.cpu() for x in batch]))
             with torch.no_grad():   # the encoder's forward error on these rows
                 feat = ac_card.encoder(batch.obs_self, batch.obs_nbr, batch.obs_mask)
@@ -1454,7 +1494,31 @@ def main(argv=None) -> int:
         timing.update(gru_bound(xs, ms, fwd))
         timing["active_slots_per_row"] = float(ms.sum() / ms.shape[1])
 
-        # where an update iteration's time goes (kernel forward, plain backward)
+        # the backward kernel beside the plain recompute it replaced (autograd
+        # through the plain scans), at the rollout rows and the random rows
+        up = torch.randn(GRAD_ROWS, enc.hidden_dim, generator=g).to(dev)
+        weights = [w.detach() for w in (*fwd, *bwd)]
+        grad_timing = {}
+        for case, batch in cases.items():
+            gxs, gms = encoder_view(batch.obs_nbr, batch.obs_mask)
+
+            def plain_backward():
+                leaves = [w.requires_grad_() for w in [t.clone() for t in weights]]
+                out = mg.masked_bigru_scan_plain(gxs, gms, leaves[:4], leaves[4:])
+                return torch.autograd.grad(out, leaves, up)
+            grad_timing[case] = {
+                "kernel_ms": cuda_ms(lambda: gg.backward(gxs, gms, [weights[:4], weights[4:]],
+                                                         up), 20),
+                "plain_ms": cuda_ms(plain_backward, 5),
+                "active_slots_per_row": float(gms.sum() / gms.shape[1]),
+                **gru_grad_bound(gms, gxs.shape[-1], enc.hidden_dim)}
+        if not grad_timing["random_neighbours"]["kernel_ms"] \
+                <= grad_timing["random_neighbours"]["plain_ms"]:
+            raise AssertionError(f"the backward kernel is slower than the plain "
+                                 f"recompute at random neighbours: {grad_timing}")
+        kstats["grad"] = grad_timing
+
+        # where an update iteration's time goes (the forward and backward kernels)
         def fwd_bwd(loss):
             ac_card.zero_grad(set_to_none=True)
             loss().backward()
@@ -1469,7 +1533,7 @@ def main(argv=None) -> int:
         if failed:
             raise AssertionError(f"gradients past rel {GRAD_RTOL}: {failed}: {report}")
         return {"rows": GRAD_ROWS, "rel_tol": GRAD_RTOL, "cases": report,
-                "timed_at_rollout_rows": timing}
+                "timed_at_rollout_rows": timing, "backward_timed": grad_timing}
     run_phase("train_grad_kernel_vs_plain", train_grad_check)
 
     # ---- multi-world lanes: world32_mix and its route-reversed variant in
@@ -3295,7 +3359,14 @@ def main(argv=None) -> int:
         "by_shape": {k: {"passes": {m: {x: v[x] for x in ("ms", "bound_ms")}
                                     for m, v in r["passes"].items()},
                          **{c: r[c] for c in ("step", "observe", "reset_where")}}
-                     for k, r in env_rows.items()}}]})
+                     for k, r in env_rows.items()}}, {
+        "name": "gru_grad", "route": "cuda",
+        "source": "rvo3d_tpu_torch/csrc/gru_grad.cu",
+        # no TPU kernel: the JAX custom_vjp differentiates the plain scan under XLA
+        "replaces": None,
+        "launches": sum(GRAD_LAUNCHES.values()),
+        "launches_by_phase": GRAD_LAUNCHES,
+        "by_rows": kstats["grad"]}]})
     if launches == 0:
         print("chip_smoke: the main path launched no masked GRU kernel", file=sys.stderr)
         return 1

@@ -15,8 +15,10 @@ direction) without copying xs. `masked_bigru_scan` runs both directions of
 a biGRU in one launch and returns the sum of their final states.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise. The backward pass recomputes
-through the plain scan, as the JAX custom_vjp does.
+CUDA tensors launch the kernel or raise. The backward pass on the CPU
+recomputes through the plain scan, as the JAX custom_vjp does; on CUDA
+tensors it launches the hand-written backward (ops/gru_grad.py), which
+walks only the active slots.
 
 The kernel's geometry (cluster split of the hidden units, row tiles,
 shared-memory bytes, grid) is computed here by `launch_geometry` and
@@ -260,8 +262,14 @@ def masked_bigru_scan_cuda(xs, mask, fwd_weights, bwd_weights):
 class MaskedGRUScan(torch.autograd.Function):
     """One direction (4 weight tensors, `reverse` honoured) or a biGRU
     (8 weight tensors: forward then backward direction, summed). Forward:
-    the kernel on CUDA, the plain scans on the CPU. Backward: recompute
-    through the plain scans (the mask gets no gradient)."""
+    the kernel on CUDA, the plain scans on the CPU. Backward: the backward
+    kernel on CUDA, a recompute through the plain scans on the CPU (the
+    mask gets no gradient)."""
+
+    @staticmethod
+    def _sets(weights):
+        """The weights as launch and backward take them: one or two sets."""
+        return [weights[:4]] if len(weights) == 4 else [weights[:4], weights[4:]]
 
     @staticmethod
     def _plain(xs, mask, reverse, weights):
@@ -274,8 +282,7 @@ class MaskedGRUScan(torch.autograd.Function):
         ctx.save_for_backward(xs, mask, *weights)
         ctx.reverse = reverse
         if xs.is_cuda:
-            sets = [weights[:4]] if len(weights) == 4 else [weights[:4], weights[4:]]
-            return launch(xs, mask, sets, reverse)
+            return launch(xs, mask, MaskedGRUScan._sets(weights), reverse)
         if xs.device.type == "cpu":
             return MaskedGRUScan._plain(xs, mask, reverse, weights)
         raise ValueError(f"no masked GRU for device {xs.device}")
@@ -289,6 +296,13 @@ class MaskedGRUScan(torch.autograd.Function):
         grads = [None] * len(diff)
         if not need:
             return tuple(grads)
+        if xs.is_cuda:
+            from rvo3d_tpu_torch.ops import gru_grad   # it imports this module
+
+            w_grads, d_xs = gru_grad.backward(xs, mask, MaskedGRUScan._sets(weights),
+                                              grad_out, ctx.reverse, want_dx=0 in need)
+            got = [d_xs, None, None, *(g for w in w_grads for g in w)]
+            return tuple(got[i] if i in need else None for i in range(len(diff)))
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(i in need) if t is not None else None
                       for i, t in enumerate(diff)]

@@ -5,8 +5,9 @@ strided reverse direction; over B in {1, 31, 2048, 4089, 4096, 65536} and
 H in {32, 100, 256} with random, empty, full and env-like suffix masks, one
 direction each way and both directions fused in one launch; the policy
 through the kernel against the same policy on the CPU; a short evaluate
-that must launch the kernel; and the training path's gradients (kernel
-forward, plain backward) of masked_bigru_scan and of the ActorCritic pi-
+that must launch the kernel; and the training path's gradients (the
+forward kernel, and the backward kernel of ops/gru_grad.py) of
+masked_bigru_scan and of the ActorCritic pi-
 and v-losses at B = 2048 (a rollout step of 128 lanes x 16 drones) and
 16384 (the PPO minibatch) against the same on the CPU; the RVO expert on
 a world32_mix lane world (float64: the same candidate indices as on the
